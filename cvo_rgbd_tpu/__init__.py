@@ -1,4 +1,4 @@
-"""cvo_rgbd_tpu — TPU-native Continuous Visual Odometry for RGB-D.
+"""cvo_rgbd_tpu — accelerator-native Continuous Visual Odometry for RGB-D.
 
 A from-scratch JAX/XLA/Pallas re-design of MaaniGhaffari/cvo-rgbd:
 correspondence-free RGB-D registration by maximizing an RKHS inner

@@ -3,10 +3,10 @@
 The reference finds the roots of  4E t^3 + 3D t^2 + 2C t + B  (the
 derivative of the quartic line-search objective) with a companion-matrix
 eigensolve (cvo.cpp:53-69, 291-307).  A nonsymmetric 3x3 eigensolve is
-hostile to jit/TPU; the closed form (Cardano + trigonometric method)
+hostile to jit; the closed form (Cardano + trigonometric method)
 is exact, branch-free via `jnp.where`, and vmappable.
 
-fp32 robustness measures (TPU has no native fp64):
+fp32 robustness measures (the align loop runs in fp32):
 - the variable is rescaled by a Fujiwara-type root bound so the
   depressed cubic works on O(1) numbers regardless of coefficient
   spread;

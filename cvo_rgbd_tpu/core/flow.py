@@ -1,8 +1,9 @@
 """Flow (twist) computation from the Gram matrix — matmul-factored.
 
 The reference accumulates, per nonzero A_ij, cross/difference terms under
-a spin mutex (cvo.cpp:164-210).  Those reductions factor exactly onto the
-MXU — no [N*M,3] intermediates, no mutex, no fp64 accumulators needed:
+a spin mutex (cvo.cpp:164-210).  Those reductions factor exactly into
+dense contractions — no [N*M,3] intermediates, no mutex, no fp64
+accumulators needed:
 
     sum_ij A_ij (x_i x y_j)  =  sum_i x_i x (A @ Y)_i
     sum_ij A_ij (y_j - x_i)  =  (1^T A) @ Y  -  (A @ 1) @ X
@@ -18,10 +19,10 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-# bf16 MXU passes (the TPU default for fp32 matmuls) put a ~1e-3
-# relative noise floor on the distance/reduction contractions, which
-# breaks the Gram symmetry cancellations and leaves a mm-level pose
-# bias.  All contractions here pin full-fp32 MXU precision.
+# Reduced-precision matmul passes (bf16 passes, or TF32 on a GPU) put a
+# ~1e-3 relative noise floor on the distance/reduction contractions,
+# which breaks the Gram symmetry cancellations and leaves a mm-level
+# pose bias.  All contractions here pin full fp32 precision.
 _HI = jax.lax.Precision.HIGHEST
 
 
@@ -44,9 +45,9 @@ def flow(A, x_pos, y_pos, *, c, d):
     every r_i is a kernel-weighted sum of SMALL differences (|y_j-x_i|
     <~ a few ell wherever A_ij > 0), so cancellation happens before the
     big reduction: measured flow error drops from ~1e-5 to ~1e-8 at
-    N=3072 (docs/PERF.md), restoring convergence at the reference's own
-    tolerances in fp32 — no fp64 (TPUs have none) and no compensated
-    accumulation needed.  Exactly the same algebra:
+    N=3072 (PERF.md), restoring convergence at the reference's own
+    tolerances in fp32 — no fp64 and no compensated accumulation
+    needed.  Exactly the same algebra:
         sum_ij A_ij (y_j - x_i)   = sum_i r_i
         sum_ij A_ij (x_i x y_j)   = sum_i x_i x r_i      (x x x = 0)
     and the cross term is centered about the x centroid (exact for any
@@ -54,12 +55,12 @@ def flow(A, x_pos, y_pos, *, c, d):
     row-local, so x-sharded / ring column-block callers (parallel/
     sharded.py) psum partials unchanged.
 
-    A y is computed as VPU row reductions (elementwise multiply +
-    sum), NOT as an MXU matmul: measured on real TPU hardware, the
-    [N,M]x[M,3] dot even at Precision.HIGHEST leaves |flow| floored
-    ~3e-4 at N=3072 (vs ~1e-8 from the same code on CPU BLAS) — the
-    narrow-RHS matmul's effective accumulation precision is far below
-    fp32, and r_i inherits it before the cancellation.  The row
+    A y is computed as elementwise row reductions (multiply + sum),
+    NOT as a matmul: on the accelerator this was first written for,
+    the [N,M]x[M,3] dot even at Precision.HIGHEST left |flow| floored
+    ~3e-4 at N=3072 (vs ~1e-8 from the same code on CPU BLAS) — a
+    narrow-RHS matmul's effective accumulation precision can fall far
+    below fp32, and r_i inherits it before the cancellation.  The row
     reductions are exact fp32 and XLA fuses each into one pass over
     A."""
     row = jnp.sum(A, axis=-1)                                    # A @ 1, [N]

@@ -1,10 +1,10 @@
-"""Masked dense Gram (kernel) matrix — the heart of CVO, TPU-style.
+"""Masked dense Gram (kernel) matrix — the heart of CVO, on an accelerator.
 
 The reference sparsifies the N x M squared-exponential kernel with a
-kd-tree radius search plus threshold gates (cvo.cpp:99-161).  On TPU the
-Gram matrix is evaluated *densely* on the MXU: the squared-distance
-matrix is one rank-3 matmul (`|x|^2 + |y|^2 - 2 x.y`), and every gate of
-the reference becomes a mask:
+kd-tree radius search plus threshold gates (cvo.cpp:99-161).  Here the
+Gram matrix is evaluated *densely* (squared distances in difference
+form, see pairwise_sqdist), and every gate of the reference becomes a
+mask:
 
     d2      <  d2_thres    (the kd-tree radius test, cvo.cpp:119-125 —
                             identical by construction: the radius *is*
@@ -13,8 +13,8 @@ the reference becomes a mask:
     a       >  sp_thres    (final sparsity gate, cvo.cpp:152)
     valid_x, valid_y       (padding masks, no reference analog)
 
-At the reference workload (N ~ M ~ 3000) this is ~9M pairs — trivial for
-the MXU, and removes the entire nanoflann/triplet machinery.
+At the reference workload (N ~ M ~ 3000) this is ~9M pairs per
+iteration, and it removes the entire nanoflann/triplet machinery.
 """
 
 from __future__ import annotations
@@ -24,10 +24,10 @@ import jax.numpy as jnp
 
 from cvo_rgbd_tpu.core.numerics import exp_neg
 
-# bf16 MXU passes (the TPU default for fp32 matmuls) put a ~1e-3
-# relative noise floor on the distance/reduction contractions, which
-# breaks the Gram symmetry cancellations and leaves a mm-level pose
-# bias.  All contractions here pin full-fp32 MXU precision.
+# Reduced-precision matmul passes (bf16 passes, or TF32 on a GPU) put a
+# ~1e-3 relative noise floor on the distance/reduction contractions,
+# which breaks the Gram symmetry cancellations and leaves a mm-level
+# pose bias.  All contractions here pin full fp32 precision.
 _HI = jax.lax.Precision.HIGHEST
 
 
@@ -41,11 +41,11 @@ def pairwise_sqdist(x, y):
     kernel-relevant d2 down at ell^2 ~ 1e-3, the expanded form's fp32
     cancellation leaves ~1e-6 m^2 absolute noise, which the exponent's
     1/(2 ell^2) = 556 turns into ~4e-5 relative noise on every Gram
-    entry — measured on TPU, that roughness floors the align flow at
-    ~2.5e-4 and blocks the reference's eps=5e-5 stop (docs/PERF.md).
+    entry — that roughness floored the align flow at ~2.5e-4 and
+    blocked the reference's eps=5e-5 stop (PERF.md).
     The difference form subtracts nearby coordinates FIRST (exact at
     fp32), then squares; three fused elementwise passes instead of one
-    matmul — the Pallas kernels already do it this way (_pair_tile).
+    matmul — the moment kernel does it this way too (_pair_tile).
     """
     d2 = None
     for k in range(x.shape[-1]):

@@ -1,6 +1,6 @@
 """Flow + line-search reductions from the A-weighted x-monomial moments.
 
-The single-pass Pallas backend (ops/pallas_moments.py) accumulates, in
+The single-pass moment kernel (ops/moment_kernel.py) accumulates, in
 ONE sweep over the Gram tiles, the omega-independent moment matrix
 
     Mom[j, m] = sum_i A_ij phi_m(x_i - c0)        [M, 35]
@@ -27,11 +27,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from cvo_rgbd_tpu.core.step_factored import (
-    M_INDEX,
-    line_search_polys,
-    monomial_features,
-)
+from cvo_rgbd_tpu.core.step_factored import M_INDEX, line_search_polys
 
 _HI = jax.lax.Precision.HIGHEST
 
@@ -42,16 +38,6 @@ _I001 = M_INDEX[(0, 0, 1)]
 _I200 = M_INDEX[(2, 0, 0)]
 _I020 = M_INDEX[(0, 2, 0)]
 _I002 = M_INDEX[(0, 0, 2)]
-
-
-def monomial_features_padded(x, width=128):
-    """[N,3] -> [N,width] monomial features zero-padded to a lane-aligned
-    width for the Pallas moment kernel (x is centered by the caller)."""
-    phi = monomial_features(x)
-    n, k = phi.shape
-    return jnp.concatenate(
-        [phi, jnp.zeros((n, width - k), phi.dtype)], axis=1
-    )
 
 
 def flow_from_moments(Mom, y_pos, c0, *, c, d):
@@ -66,11 +52,11 @@ def flow_from_moments(Mom, y_pos, c0, *, c, d):
                                                             y'=y-c0)
 
     cancels INSIDE each column before the j-reduction; measured flow
-    error at N=3072 drops ~1000x to ~1e-8 (docs/PERF.md), restoring
-    convergence at the C++ tolerances with no extra precision —
-    verified on-chip equivalent (8/8 pairs, ~60 iterations) to an
-    in-kernel per-row residual accumulation once the SE(3) matmuls are
-    precision-pinned, and ~15% cheaper.  Exact algebra (no
+    error at N=3072 drops ~1000x to ~1e-8 (PERF.md), restoring
+    convergence at the C++ tolerances with no extra precision, and
+    equivalent in convergence to an in-kernel per-row residual
+    accumulation once the SE(3) matmuls are precision-pinned.  Exact
+    algebra (no
     approximation vs core.flow.flow):
       sum_ij A_ij (y_j - x_i)   = sum_j r_j
       sum_ij A_ij (x_i x y_j)   = sum_j S1full_j x y_j
@@ -115,8 +101,8 @@ def step_from_moments(Mom, y_pos, c0, omega, v, ell):
     needs the dense stack: each polynomial is ~15-35 monomial terms
     whose [M]-vector coefficients come straight out of the Poly product
     engine, so the whole epilogue is a fused elementwise chain over [M]
-    vectors plus one reduction per polynomial.  Algebraically identical;
-    measured ~2x cheaper epilogue at reference scale (docs/PERF.md)."""
+    vectors plus one reduction per polynomial.  Algebraically identical,
+    with far fewer bytes moved per iteration."""
     P_B, P_C, P_D, P_E = line_search_polys(
         y_pos, y_pos - c0, omega, v, ell
     )

@@ -1,16 +1,17 @@
-"""Precision helpers for the TPU compute path.
+"""Precision helpers for the compute path.
 
-`exp_neg` exists because TPU hardware `exp` is a fast polynomial with
-~1.2e-6 median relative error (measured on-chip, identical through XLA
-and Mosaic), vs ~3e-8 for host libm.  That looks harmless, but the
-Gram gates (`a > sp_thres`, cvo.cpp:152) turn it into flow-field
-ROUGHNESS: an entry whose kernel value wiggles across the threshold as
-the pose moves flips in/out of the support, each flip jolting the flow
-by ~sp_thres*|x-y|/d ~ 2e-5 — and at reference scale (N=M=3072,
-ell=0.03) those jolts stall the align's contraction in a limit cycle
-at |flow| ~ 3e-4, above the reference's eps=5e-5 stop (which the C++
-meets with libm exp + double accumulators; full study in docs/PERF.md).
-The same align contracts to 4e-6 on CPU with the identical fp32 code.
+`exp_neg` exists because an accelerator's hardware `exp` may be a fast
+approximation: the one this system was first written for had ~1e-6
+median relative error, vs ~3e-8 for host libm.  That looks harmless,
+but the Gram gates (`a > sp_thres`, cvo.cpp:152) turn it into
+flow-field ROUGHNESS: an entry whose kernel value wiggles across
+the threshold as the pose moves flips in/out of the support, each flip
+jolting the flow by ~sp_thres*|x-y|/d ~ 2e-5 — and at reference scale
+(N=M=3072, ell=0.03) those jolts stalled the align's contraction in a
+limit cycle at |flow| ~ 3e-4, above the reference's eps=5e-5 stop
+(which the C++ meets with libm exp + double accumulators; see
+PERF.md).  Whether the H100's exp needs it is an open question
+(ROADMAP S6); `params.exp_mode="fast"` selects the hardware exp.
 
 exp_neg(z) = 2^-n * p(-r),  n = round(z*log2 e),  r = z - n*ln 2
 
@@ -19,8 +20,8 @@ is exact for n < 2^12 since ln2_hi carries 11 significand bits, and
 z - n*ln2_hi is a Sterbenz-exact nearby subtraction) and a degree-7
 least-squares polynomial on [-ln2/2, ln2/2] (fit error 1e-10).  The
 whole fp32 pipeline measures max 9.5e-8 relative error over z in
-[0, 12] — libm quality, ~8 VPU ops, no tables, and it lowers under
-both XLA and Mosaic (round, int shift, bitcast).
+[0, 12] — libm quality, ~8 elementwise ops, no tables, and it lowers
+under XLA and inside the Triton kernels (floor, int shift, bitcast).
 """
 
 from __future__ import annotations
@@ -46,7 +47,9 @@ def exp_neg(z):
     """Accurate exp(-z) for z >= 0 (fp32, ~1e-7 relative; see module
     docstring).  Elementwise; safe inside Pallas kernels."""
     z = jnp.minimum(z, _Z_MAX)
-    n = jnp.round(z * _LOG2E)
+    # round-half-up via floor: Triton has no round-to-nearest-even, and
+    # a tie only moves r to the other end of [-ln2/2, ln2/2]
+    n = jnp.floor(z * _LOG2E + 0.5)
     r = (z - n * _LN2_HI) - n * _LN2_LO
     p = jnp.full_like(z, _EXP_COEF[7])
     for c in _EXP_COEF[6::-1]:

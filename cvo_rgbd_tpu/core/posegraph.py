@@ -14,8 +14,8 @@ gauge-fixed by a large prior.
 Two solvers share the same per-edge residual/Jacobian math (batched
 over edges with vmap):
 
-- "dense" — assemble the full 6N x 6N normal equations and solve on
-  the MXU.  Exact; O(N^2) memory — right at tens of keyframes.
+- "dense" — assemble the full 6N x 6N normal equations and solve
+  densely.  Exact; O(N^2) memory — right at tens of keyframes.
 - "pcg" — never form H: keep per-edge 6x6 coupling blocks, accumulate
   only the N block-diagonal entries, and solve by block-Jacobi
   preconditioned CG whose matvec scatter/gathers through the edge list
@@ -92,13 +92,14 @@ def _se3_inv44(X):
 
 def _edge_residual_jac(Xi, Xj, Z):
     """r [6], Ji [6,6], Jj [6,6] for one edge."""
-    rel = _se3_inv44(Xi) @ Xj
-    E = _se3_inv44(Z) @ rel
+    mm = functools.partial(jnp.matmul, precision=_HI)
+    rel = mm(_se3_inv44(Xi), Xj)
+    E = mm(_se3_inv44(Z), rel)
     r = se3.log_se3(E)
     # right Jacobian inverse: Jr(r) = Jl(-r)
     Jr_inv = jnp.linalg.inv(se3.left_jacobian_se3(-r))
     Adj = se3.adjoint_se3(_se3_inv44(rel))
-    Ji = -Jr_inv @ Adj
+    Ji = -mm(Jr_inv, Adj)
     Jj = Jr_inv
     return r, Ji, Jj
 
@@ -290,8 +291,6 @@ def _compiled_pcg_sharded(mesh, axis, iters, damping, cg_iters,
                           huber_delta, robust, warmup=0):
     from jax.sharding import PartitionSpec as P
 
-    from cvo_rgbd_tpu.parallel.sharded import shard_map
-
     def solve(graph):
         return _run(
             lambda nodes, k: _gn_step_pcg(
@@ -304,10 +303,10 @@ def _compiled_pcg_sharded(mesh, axis, iters, damping, cg_iters,
 
     es = P(axis)
     rep = P()
-    return jax.jit(shard_map(
-        solve, mesh,
+    return jax.jit(jax.shard_map(
+        solve, mesh=mesh,
         in_specs=(PoseGraph(rep, es, es, es, es),),
-        out_specs=(rep, rep),
+        out_specs=(rep, rep), check_vma=False,
     ))
 
 
@@ -379,7 +378,8 @@ def graph_cost(graph: PoseGraph, nodes=None):
     Xj = nodes[graph.edge_j]
 
     def res(Xi, Xj, Z):
-        return se3.log_se3(_se3_inv44(Z) @ _se3_inv44(Xi) @ Xj)
+        mm = functools.partial(jnp.matmul, precision=_HI)
+        return se3.log_se3(mm(mm(_se3_inv44(Z), _se3_inv44(Xi)), Xj))
 
     r = jax.vmap(res)(Xi, Xj, graph.edge_z)
     return jnp.sum(graph.edge_w * jnp.sum(r * r, axis=-1))

@@ -1,6 +1,6 @@
 """Frame-to-frame RKHS SE(3) registration — the align loop under jit.
 
-TPU-native re-design of cvo::align (cvo.cpp:361-420) and acvo::align
+Re-design of cvo::align (cvo.cpp:361-420) and acvo::align
 (adaptive_cvo.cpp:490-555): the whole gradient flow runs as a single
 `lax.while_loop` inside one XLA program — early exit without recompiles,
 static shapes throughout, dense masked Gram per iteration.
@@ -35,7 +35,7 @@ import jax.numpy as jnp
 from cvo_rgbd_tpu import se3
 from cvo_rgbd_tpu.core import flow as flow_mod
 from cvo_rgbd_tpu.core import gram as gram_mod
-from cvo_rgbd_tpu.core.cloud import PointCloud, transform_cloud
+from cvo_rgbd_tpu.core.cloud import LANE, PointCloud, kd_sort, transform_cloud
 from cvo_rgbd_tpu.core.step import step_size
 from cvo_rgbd_tpu.params import AcvoParams
 
@@ -90,73 +90,38 @@ def make_align_step(p, adaptive: bool):
     """Build the per-iteration body shared by cvo/acvo align."""
 
     use_pallas = getattr(p, "backend", "xla") == "pallas"
-    linear = p.color_mode == "linear"
     if use_pallas:
-        if linear and adaptive:
-            raise ValueError(
-                "pallas backend supports linear color mode for cvo only"
-            )
-        if adaptive and p.yy_quirk:
-            raise ValueError("yy_quirk emulation requires backend='xla'")
-        from cvo_rgbd_tpu.ops import fused_moments, fused_wsq
-        from cvo_rgbd_tpu.ops.pallas_gram import (
-            _tile, aabb_min_d2, block_bounds,
-        )
         from cvo_rgbd_tpu.core.cubic import cubic_roots, min_positive_root
         from cvo_rgbd_tpu.core.moments import (
             flow_from_moments, step_from_moments,
         )
-
-    use_skip = use_pallas and getattr(p, "tile_skip", True)
+        from cvo_rgbd_tpu.ops import fused_moments, fused_wsq
 
     def body(state: AlignState, fixed: PointCloud, moving: PointCloud, ci,
-             ck_caches=None, moments_pre=None, skip_pre=None,
-             cheb_pre=None):
+             moments_pre=None, cheb_pre=None):
         tf_R, tf_T = se3.se3_inv(state.R, state.T)
         tf = se3.make_se3(tf_R, tf_T)
         y_pos = transform_cloud(tf_R, tf_T, moving.positions)
 
         if use_pallas:
-            # ck_caches = (ck_xy, ck_xx, ck_yy) color-kernel tiles from
-            # ops.color_gram — loop-invariant (features never transform,
-            # cvo.cpp:143-153), computed once per align in `align()`.
-            # Linear mode: the (pre-masked) MATLAB CI tile plays the
-            # cache role — it IS the per-pair precomputation
-            # (rkhs_se3_registration.m:108).
-            ck_xy, ck_xx, ck_yy = ck_caches if ck_caches else (None,) * 3
-            if linear:
-                ck_xy = ci
-            # SINGLE tile sweep per iteration: accumulate the moment
-            # matrix A^T Phi(x - c0) (omega-independent), then both the
-            # flow AND the line-search coefficients are O(M) epilogues
-            # (core/moments.py) — the reference's two nnz(A) traversals
-            # (cvo.cpp:164-308) collapse into one pass.
+            # SINGLE tile sweep per iteration (ops/moment_kernel.py):
+            # accumulate the moment matrix A^T Phi(x - c0)
+            # (omega-independent), then both the flow AND the
+            # line-search coefficients are O(M) epilogues
+            # (core/moments.py) — the reference's two nnz(A)
+            # traversals (cvo.cpp:164-308) collapse into one pass.
             c0, x_c, phi = moments_pre
-            md_xy = md_xx = md_yy = None
-            if use_skip:
-                # exact AABB tile pruning (pallas_gram.block_bounds):
-                # x bounds are loop-invariant (skip_pre); y bounds move
-                # with the transform — O(M) reduce per iteration.  The
-                # gap computation is shift-invariant, so uncentered
-                # bounds serve the centered kernel coordinates.
-                lo_x, hi_x, md_xx, md_yy = skip_pre
-                lo_y, hi_y = block_bounds(
-                    y_pos, moving.mask, _tile(y_pos.shape[0])
-                )
-                md_xy = aabb_min_d2(lo_x, hi_x, lo_y, hi_y)
             Mom, nnz_xy = fused_moments(
                 x_c, fixed.features, fixed.mask,
                 y_pos - c0, moving.features, moving.mask,
-                phi, state.ell, ck_xy, md_xy, p=p,
+                phi, state.ell, p=p,
             )
             omega, v, wsq_xy, _ = flow_from_moments(
                 Mom, y_pos, c0, c=p.c, d=p.d
             )
             if adaptive:
                 # self-kernels only feed the dl reduction — lean sweeps
-                # (adaptive_cvo.cpp:156-160, 222-271); their distance
-                # tiles are rigid-invariant, so the AABB prune matrices
-                # come fixed from skip_pre (VERDICT r4 item 5)
+                # (adaptive_cvo.cpp:156-160, 222-271)
                 if cheb_pre is not None:
                     # self_mode="cheb": the four reductions are
                     # functions of ell ALONE — interpolate the per-
@@ -182,12 +147,12 @@ def make_align_step(p, adaptive: bool):
                     wsq_xx, nnz_xx = fused_wsq(
                         fixed.positions, fixed.features, fixed.mask,
                         fixed.positions, fixed.features, fixed.mask,
-                        state.ell, ck_xx, md_xx, p=p, symmetric=True,
+                        state.ell, p=p, symmetric=True,
                     )
                     wsq_yy, nnz_yy = fused_wsq(
                         y_pos, moving.features, moving.mask,
                         y_pos, moving.features, moving.mask, state.ell,
-                        ck_yy, md_yy, p=p, symmetric=True,
+                        p=p, symmetric=True,
                     )
                 ell3 = state.ell ** 3
                 numer = (wsq_yy - 2.0 * wsq_xy + wsq_xx) / ell3
@@ -248,8 +213,9 @@ def make_align_step(p, adaptive: bool):
         stop1 = (jnp.linalg.norm(omega) < p.eps) & (jnp.linalg.norm(v) < p.eps)
 
         dR, dT = se3.exp_sek3(omega, v, step)
-        # pinned matmuls: the bf16-default R @ dR chain is rough enough
-        # on TPU to stall contraction above the 5e-5 stop (se3.py note)
+        # pinned matmuls: a reduced-precision default (bf16 passes, or
+        # TF32 on a GPU) makes the R @ dR chain rough enough to stall
+        # contraction above the 5e-5 stop (se3.py note)
         _hi = jax.lax.Precision.HIGHEST
         R_new = jnp.where(
             stop1, state.R, jnp.matmul(state.R, dR, precision=_hi)
@@ -304,104 +270,48 @@ def make_align_step(p, adaptive: bool):
 
 def prepare_ci(p, fixed: PointCloud, moving: PointCloud):
     """Linear-mode CI tile (rkhs_se3_registration.m:108), precomputed
-    once per pair; None for se mode.  For the pallas backend the tile
-    is pre-masked: the kernels gate on the position kernel alone and
-    take masking from zeros in the cached tile (matlab_gram applies the
-    masks in its own gate instead)."""
-    if p.color_mode != "linear":
+    once per pair for the XLA path; None for se mode and for the
+    moment kernel, which recomputes the 5-wide dot per tile."""
+    if p.color_mode != "linear" or getattr(p, "backend", "xla") == "pallas":
         return None
-    ci = gram_mod.linear_color_gram(
+    return gram_mod.linear_color_gram(
         fixed.features, moving.features, p.color_scale
     )
-    if getattr(p, "backend", "xla") == "pallas":
-        ci = jnp.where(
-            (fixed.mask[:, None] > 0) & (moving.mask[None, :] > 0), ci, 0.0
-        )
-    return ci
-
-
-def build_ck_caches(p, adaptive, fixed: PointCloud, moving: PointCloud):
-    """Loop-invariant color-kernel caches for the pallas backend (None
-    otherwise): (ck_xy, ck_xx, ck_yy), self-kernels only for acvo.
-
-    Each cache is an [N,M] f32 in HBM per pair (per batched lane under
-    vmap) — `p.ck_cache=False` opts out when memory-bound."""
-    if getattr(p, "backend", "xla") != "pallas" or not getattr(
-        p, "ck_cache", True
-    ):
-        return None
-    if p.color_mode == "linear":
-        # the masked CI tile is built in align() and passed through the
-        # `ci` argument instead
-        return None
-    from cvo_rgbd_tpu.ops import color_gram
-
-    ck_xy = color_gram(
-        fixed.positions, fixed.features, fixed.mask,
-        moving.positions, moving.features, moving.mask, p=p,
-    )
-    if not adaptive:
-        return (ck_xy, None, None)
-    ck_xx = color_gram(
-        fixed.positions, fixed.features, fixed.mask,
-        fixed.positions, fixed.features, fixed.mask, p=p,
-    )
-    ck_yy = color_gram(
-        moving.positions, moving.features, moving.mask,
-        moving.positions, moving.features, moving.mask, p=p,
-    )
-    return (ck_xy, ck_xx, ck_yy)
 
 
 def build_moments_pre(p, fixed: PointCloud):
-    """Per-pair precomputation for the single-pass pallas backend:
-    (c0, x - c0, Phi(x - c0) lane-padded).  The fixed cloud never
-    transforms, so its centered monomial features are loop-invariant;
-    c0 (the masked centroid) bounds |x'| at cloud-extent scale, which
-    keeps the degree-4 monomial cancellation in fp32 range (see
-    core/step_factored.py's centering note)."""
+    """Per-pair precomputation for the moment kernel: (c0, x - c0,
+    Phi(x - c0)).  The fixed cloud never transforms, so its centered
+    monomial features are loop-invariant; c0 (the masked centroid)
+    bounds |x'| at cloud-extent scale, which keeps the degree-4
+    monomial cancellation in fp32 range (see core/step_factored.py's
+    centering note)."""
     if getattr(p, "backend", "xla") != "pallas":
         return None
-    from cvo_rgbd_tpu.core.moments import monomial_features_padded
+    from cvo_rgbd_tpu.core.step_factored import monomial_features
 
     w = fixed.mask.astype(jnp.float32)
     c0 = jnp.sum(fixed.positions * w[:, None], axis=0) / jnp.maximum(
         jnp.sum(w), 1.0
     )
     x_c = fixed.positions - c0
-    return c0, x_c, monomial_features_padded(x_c)
+    return c0, x_c, monomial_features(x_c)
 
 
-def build_skip_pre(p, adaptive, fixed: PointCloud, moving: PointCloud):
-    """Loop-invariant AABB tile-prune state for the pallas backend:
-    (lo_x, hi_x, md_xx, md_yy).  The fixed cloud never moves; the
-    self-kernel distance tiles are rigid-invariant (d2 between two
-    points of the SAME rigidly-transformed cloud never changes), so
-    their prune matrices are computed ONCE per align from the
-    untransformed clouds (adaptive_cvo.cpp:156-160's per-iteration
-    recomputation out-designed).  md_xx/md_yy are None for cvo."""
-    if getattr(p, "backend", "xla") != "pallas" or not getattr(
-        p, "tile_skip", True
-    ):
-        return None
-    from cvo_rgbd_tpu.ops.pallas_gram import _tile, aabb_min_d2, block_bounds
-
-    lo_x, hi_x = block_bounds(
-        fixed.positions, fixed.mask, _tile(fixed.positions.shape[0])
-    )
-    md_xx = md_yy = None
-    if adaptive:
-        md_xx = aabb_min_d2(lo_x, hi_x, lo_x, hi_x)
-        lo_y, hi_y = block_bounds(
-            moving.positions, moving.mask, _tile(moving.positions.shape[0])
-        )
-        md_yy = aabb_min_d2(lo_y, hi_y, lo_y, hi_y)
-    return lo_x, hi_x, md_xx, md_yy
+def kernel_order(p, cloud: PointCloud) -> PointCloud:
+    """kd-sort a cloud for the moment kernel (core/cloud.kd_sort):
+    point order is semantically irrelevant, but compact tiles are what
+    lets the AABB pruning skip — raster/sample order gives every tile
+    a scene-wide bounding box.  Unconditional under the pallas backend
+    (tile_skip on/off stays bitwise comparable); capacities that are
+    not whole kd cells keep their order."""
+    if getattr(p, "backend", "xla") != "pallas" or cloud.capacity % LANE:
+        return cloud
+    return kd_sort(cloud)
 
 
 def build_selfsweep_cheb(p, adaptive, fixed: PointCloud,
-                         moving: PointCloud, ck_caches, skip_pre,
-                         ell0=None):
+                         moving: PointCloud, ell0=None):
     """Per-align Chebyshev tables for the adaptive self-kernel
     reductions (params.self_mode="cheb"): wsq_xx/nnz_xx/wsq_yy/nnz_yy
     are functions of ell ALONE (the self distances are rigid-invariant,
@@ -444,22 +354,18 @@ def build_selfsweep_cheb(p, adaptive, fixed: PointCloud,
     ell_nodes = 1.0 / _np.sqrt(2.0 * _np.exp(t_nodes))
     wts = ((-1.0) ** kk) * _np.sin(_np.pi * (kk + 0.5) / K)
 
-    ck_xy, ck_xx, ck_yy = ck_caches if ck_caches else (None,) * 3
-    md_xx = md_yy = None
-    if skip_pre is not None:
-        _, _, md_xx, md_yy = skip_pre
     cols = []
     for e in ell_nodes:
         ell = jnp.float32(e)
         wxx, nxx = fused_wsq(
             fixed.positions, fixed.features, fixed.mask,
             fixed.positions, fixed.features, fixed.mask,
-            ell, ck_xx, md_xx, p=p, symmetric=True,
+            ell, p=p, symmetric=True,
         )
         wyy, nyy = fused_wsq(
             moving.positions, moving.features, moving.mask,
             moving.positions, moving.features, moving.mask,
-            ell, ck_yy, md_yy, p=p, symmetric=True,
+            ell, p=p, symmetric=True,
         )
         cols.append(jnp.stack([wxx, nxx, wyy, nyy]))
     logv = jnp.log(jnp.maximum(jnp.stack(cols, axis=1), 1e-30))
@@ -499,51 +405,8 @@ def align(
     Defaults to `p.ell_init`.
     """
     adaptive = isinstance(p, AcvoParams)
-    if getattr(p, "backend", "xla") == "fused":
-        # whole-loop Pallas mega-kernel (ops/pallas_align.py); clouds
-        # stay VMEM-resident and the while_loop runs on scalar carries.
-        # Problems the kernel cannot hold (clouds beyond VMEM, yy_quirk
-        # emulation, mismatched feature layout) fall back to the
-        # standard per-iteration backends.
-        import dataclasses
-
-        from cvo_rgbd_tpu.ops.pallas_align import align_fused, fused_eligible
-
-        if fused_eligible(p, fixed, moving):
-            # compact tiles for the in-kernel AABB pruning; applied
-            # regardless of tile_skip so skip on/off stays bitwise
-            # comparable (see the pallas-backend branch below)
-            from cvo_rgbd_tpu.core.cloud import kd_sort
-
-            if fixed.positions.shape[0] % 128 == 0:
-                fixed = kd_sort(fixed)
-            if moving.positions.shape[0] % 128 == 0:
-                moving = kd_sort(moving)
-            return align_fused(p, fixed, moving, R0, T0, ell0)
-        quirk = adaptive and p.yy_quirk
-        lin_acvo = adaptive and p.color_mode == "linear"
-        # the per-iteration pallas backend tiles capacities in 128-lane
-        # blocks; hand-built clouds with other capacities must route all
-        # the way to xla (pad_cloud always produces 128-multiples, so
-        # this only bites hand-built clouds — the fallback must never
-        # raise)
-        unaligned = (
-            fixed.positions.shape[0] % 128 or moving.positions.shape[0] % 128
-        )
-        p = dataclasses.replace(
-            p, backend="xla" if quirk or lin_acvo or unaligned else "pallas"
-        )
-    if getattr(p, "backend", "xla") == "pallas":
-        # kd-sort both clouds (core/cloud.kd_sort, median-split cells):
-        # point order is semantically irrelevant, but compact tiles are
-        # what lets the AABB pruning actually skip — raster/sample
-        # order gives every tile a scene-wide bounding box.
-        # Unconditional under the pallas backend so tile_skip on/off
-        # stays bitwise comparable.
-        from cvo_rgbd_tpu.core.cloud import kd_sort
-
-        fixed = kd_sort(fixed)
-        moving = kd_sort(moving)
+    fixed = kernel_order(p, fixed)
+    moving = kernel_order(p, moving)
     dtype = jnp.float32
     R0 = jnp.eye(3, dtype=dtype) if R0 is None else jnp.asarray(R0, dtype)
     T0 = jnp.zeros(3, dtype=dtype) if T0 is None else jnp.asarray(T0, dtype)
@@ -565,18 +428,14 @@ def align(
     )
 
     body = make_align_step(p, adaptive)
-    ck_caches = build_ck_caches(p, adaptive, fixed, moving)
     moments_pre = build_moments_pre(p, fixed)
-    skip_pre = build_skip_pre(p, adaptive, fixed, moving)
-    cheb_pre = build_selfsweep_cheb(p, adaptive, fixed, moving,
-                                    ck_caches, skip_pre, ell0=ell0)
+    cheb_pre = build_selfsweep_cheb(p, adaptive, fixed, moving, ell0=ell0)
 
     def cond_fn(s: AlignState):
         return (s.k < p.max_iter) & ~s.converged
 
     def body_fn(s: AlignState):
-        return body(s, fixed, moving, ci, ck_caches, moments_pre,
-                    skip_pre, cheb_pre)
+        return body(s, fixed, moving, ci, moments_pre, cheb_pre)
 
     final = jax.lax.while_loop(cond_fn, body_fn, init)
 

@@ -17,10 +17,10 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-# bf16 MXU passes (the TPU default for fp32 matmuls) put a ~1e-3
-# relative noise floor on the distance/reduction contractions, which
-# breaks the Gram symmetry cancellations and leaves a mm-level pose
-# bias.  All contractions here pin full-fp32 MXU precision.
+# Reduced-precision matmul passes (bf16 passes, or TF32 on a GPU) put a
+# ~1e-3 relative noise floor on the distance/reduction contractions,
+# which breaks the Gram symmetry cancellations and leaves a mm-level
+# pose bias.  All contractions here pin full fp32 precision.
 _HI = jax.lax.Precision.HIGHEST
 
 from cvo_rgbd_tpu.core.cubic import cubic_roots, min_positive_root

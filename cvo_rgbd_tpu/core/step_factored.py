@@ -16,7 +16,7 @@ polynomials in the 35-dim monomial basis of degree <= 4 over
 
 with Phi [N, 35] the monomial features of the fixed cloud and C_k
 [M, 35] the per-j coefficients — the entire line-search reduction is
-one [N,M]x[M,140] MXU matmul, no [N,M] intermediates at all.
+one [N,M]x[M,140] matmul, no [N,M] intermediates at all.
 
 The polynomial algebra (products of affine forms) is done by a tiny
 static Poly engine at trace time; everything lowers to elementwise
@@ -125,7 +125,7 @@ def monomial_features(x):
 # Vectorized polynomial algebra: dense [M,35] coefficient arrays with
 # multiplication-by-affine as ONE outer product + ONE static sparse
 # matmul.  The scalar Poly engine above emits ~90 tiny column fusions
-# per align iteration (each a separate TPU kernel launch); this form
+# per align iteration (each a separate kernel launch); this form
 # lowers to ~2 kernels per product.
 # ---------------------------------------------------------------------------
 

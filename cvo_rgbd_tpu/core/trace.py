@@ -19,12 +19,15 @@ import jax.numpy as jnp
 from cvo_rgbd_tpu import se3
 from cvo_rgbd_tpu.core.registration import (
     AlignState,
-    build_ck_caches,
     build_moments_pre,
+    build_selfsweep_cheb,
+    kernel_order,
     make_align_step,
     prepare_ci,
 )
 from cvo_rgbd_tpu.params import AcvoParams
+
+_HI = jax.lax.Precision.HIGHEST
 
 
 class IterRecord(NamedTuple):
@@ -43,30 +46,10 @@ def align_trace(p, fixed, moving, n_iters: int):
     (final_state, IterRecord stacked over iterations).
     """
     adaptive = isinstance(p, AcvoParams)
-    if getattr(p, "backend", "xla") == "fused":
-        # the mega-kernel runs its loop inside one Pallas program and
-        # cannot emit per-iteration records; trace the closest
-        # per-iteration backend instead (documented, not silent)
-        import dataclasses
-
-        quirk = adaptive and p.yy_quirk
-        lin_acvo = adaptive and p.color_mode == "linear"
-        p = dataclasses.replace(
-            p, backend="xla" if quirk or lin_acvo else "pallas"
-        )
-    if getattr(p, "backend", "xla") == "pallas":
-        # mirror align(): the pallas backend kd-sorts unconditionally
-        # (compact tiles for AABB pruning; CLAUDE.md bitwise rule).
-        # Without this the trace runs on a different point order than
-        # the align it documents — different fp32 reduction order, so
-        # the recorded omega/v/ell drift from what align computes and
-        # skip_pre prunes ~0%.
-        from cvo_rgbd_tpu.core.cloud import kd_sort
-
-        if fixed.positions.shape[0] % 128 == 0:
-            fixed = kd_sort(fixed)
-        if moving.positions.shape[0] % 128 == 0:
-            moving = kd_sort(moving)
+    # mirror align(): the same point order, so the trace records the
+    # fp32 reductions that align computes
+    fixed = kernel_order(p, fixed)
+    moving = kernel_order(p, moving)
     body = make_align_step(p, adaptive)
     ci = prepare_ci(p, fixed, moving)
 
@@ -84,28 +67,20 @@ def align_trace(p, fixed, moving, n_iters: int):
         v=jnp.zeros(3, jnp.float32),
     )
 
-    ck_caches = build_ck_caches(p, adaptive, fixed, moving)
     moments_pre = build_moments_pre(p, fixed)
-    from cvo_rgbd_tpu.core.registration import (
-        build_selfsweep_cheb,
-        build_skip_pre,
-    )
-
-    skip_pre = build_skip_pre(p, adaptive, fixed, moving)
-    cheb_pre = build_selfsweep_cheb(p, adaptive, fixed, moving,
-                                    ck_caches, skip_pre)
+    cheb_pre = build_selfsweep_cheb(p, adaptive, fixed, moving)
 
     def scan_body(state, _):
         prev_R, prev_T = state.R, state.T
         new = jax.lax.cond(
             state.converged,
             lambda s: s,
-            lambda s: body(s, fixed, moving, ci, ck_caches, moments_pre,
-                           skip_pre, cheb_pre),
+            lambda s: body(s, fixed, moving, ci, moments_pre, cheb_pre),
             state,
         )
-        dR = jnp.swapaxes(prev_R, -1, -2) @ new.R
-        dT = jnp.swapaxes(prev_R, -1, -2)[..., :3, :3] @ (new.T - prev_T)
+        prev_Rt = jnp.swapaxes(prev_R, -1, -2)
+        dR = jnp.matmul(prev_Rt, new.R, precision=_HI)
+        dT = jnp.matmul(prev_Rt, new.T - prev_T, precision=_HI)
         rec = IterRecord(
             omega_norm=jnp.linalg.norm(new.omega),
             v_norm=jnp.linalg.norm(new.v),

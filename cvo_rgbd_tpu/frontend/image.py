@@ -1,6 +1,6 @@
 """Pure-JAX image pipeline: color conversion, pyramid, gradients.
 
-TPU-native replacement of the reference frame preparation
+Replacement of the reference frame preparation
 (pcd_generator.cpp:33-120 `make_pyramid`, :384-396 `load_image`):
 `reduce_window` 2x2-mean pyramid, central-difference gradients as
 shifted adds — all fused by XLA, static shapes.

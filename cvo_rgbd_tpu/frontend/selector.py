@@ -5,7 +5,7 @@ per-32x32-block gradient-histogram thresholds, a 3-scale blocked argmax
 with per-level down-weighting, a *stateful* recursion that adapts the
 block "potential" across frames to hit `num_want`, and a fixed-seed
 random subsample.  That design is hostile to jit (recursion, RNG state,
-data-dependent counts), so this module re-derives it TPU-first:
+data-dependent counts), so this module re-derives it for XLA:
 
 - the histogram-quantile threshold map is computed exactly as DSO does
   (quantile 0.5 of clipped sqrt-gradients per 32x32 block, +7,

@@ -1,9 +1,10 @@
 """Native (C++) runtime components: threaded prefetching frame loader.
 
 Build-on-first-use: g++ compiles pngio.cpp + loader.cpp into
-_native.so next to this file (rebuilt when sources are newer).  The
-odometry driver uses the native loader when it builds; PIL remains the
-fallback, so the framework works without a toolchain.
+_native.so next to this file (rebuilt when sources are newer; the
+file is git-ignored).  The odometry driver uses the native loader when
+it builds; io/png.py (zlib + numpy) is the fallback, so the framework
+works without a toolchain.  `build_error()` says why a build failed.
 """
 
 from __future__ import annotations
@@ -70,6 +71,12 @@ def get_lib():
         except Exception as e:  # toolchain missing / build failed
             _build_error = str(e)
         return _lib
+
+
+def build_error():
+    """None once the library loaded, else why it could not."""
+    get_lib()
+    return _build_error
 
 
 def decode_png(path):

@@ -2,7 +2,7 @@
 //
 // Native-runtime replacement of the reference's synchronous per-frame
 // `load_img` (cvo_main.cpp:36-52): worker threads read and decode
-// upcoming (rgb, depth) PNG pairs into a bounded ring while the TPU
+// upcoming (rgb, depth) PNG pairs into a bounded ring while the device
 // registers the current pair, so host IO never blocks device compute.
 //
 // C API (ctypes-friendly):

@@ -1,10 +1,3 @@
-from cvo_rgbd_tpu.ops.pallas_gram import color_gram, fused_flow, fused_step_coeffs
-from cvo_rgbd_tpu.ops.pallas_moments import fused_moments, fused_wsq
+from cvo_rgbd_tpu.ops.moment_kernel import fused_moments, fused_wsq
 
-__all__ = [
-    "color_gram",
-    "fused_flow",
-    "fused_step_coeffs",
-    "fused_moments",
-    "fused_wsq",
-]
+__all__ = ["fused_moments", "fused_wsq"]

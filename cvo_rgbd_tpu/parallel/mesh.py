@@ -1,8 +1,10 @@
 """Device-mesh construction helpers.
 
 The reference's only parallel resource is the TBB thread pool
-(cvo.cpp:362); the TPU-native equivalent is a `jax.sharding.Mesh` over
-ICI (intra-slice) and DCN (multi-host), built here.  SURVEY.md
+(cvo.cpp:362); the equivalent here is a `jax.sharding.Mesh` over the
+devices of one host and, across hosts, over the network (multi-host),
+built here.  The cards of one host are joined all to all, so the axis
+order follows the algorithm only.  SURVEY.md
 section 2.6 maps each reference reduction to its collective.
 """
 
@@ -36,7 +38,7 @@ def make_mesh(axes: dict[str, int] | None = None, devices=None) -> Mesh:
 
 
 def multihost_initialize(**kwargs):
-    """Initialize jax.distributed for multi-host meshes (DCN).
+    """Initialize jax.distributed for multi-host meshes.
 
     One entry point with LOUD failure semantics: only the benign
     "already initialized" case is swallowed (so drivers can call this
@@ -48,8 +50,8 @@ def multihost_initialize(**kwargs):
         multihost_initialize(coordinator_address="host0:8476",
                              num_processes=H, process_id=h)
     after which `jax.devices()` is the GLOBAL device list and
-    `make_mesh({"dp": H, "sp": -1})` lays dp over DCN (outer axis) and
-    sp over ICI.  See tests/test_multihost.py for a live 2-process
+    `make_mesh({"dp": H, "sp": -1})` lays dp across hosts (outer axis)
+    and sp over the devices of each host.  See tests/test_multihost.py for a live 2-process
     CPU-backend exercise of this path.
     """
     from jax._src import distributed as _dist

@@ -21,10 +21,9 @@ all-reduces (SURVEY.md section 2.6): omega/v (cvo.cpp:201-204), B..E
   of frame pairs, sharded over axis `dp` (multi-sequence odometry).
 
 Local per-device compute in the sharded/ring paths runs the same
-single-pass Pallas moment kernel as the single-chip product when
-`p.backend` selects it (VERDICT r4 item 1); the XLA dense-block path
-remains the default-params fallback and the only yy_quirk/adaptive-
-linear implementation.
+single-pass moment kernel as the single-device align when `p.backend`
+selects it; the XLA dense-block path is the default and the only
+yy_quirk/adaptive-linear implementation.
 """
 
 from __future__ import annotations
@@ -34,21 +33,6 @@ import functools
 import jax
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
-try:  # jax >= 0.8
-    from jax import shard_map as _shard_map_new
-
-    def shard_map(f, mesh, in_specs, out_specs, check_rep=False):
-        try:
-            return _shard_map_new(
-                f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-                check_vma=check_rep,
-            )
-        except TypeError:
-            return _shard_map_new(
-                f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-            )
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
 
 from cvo_rgbd_tpu import se3
 from cvo_rgbd_tpu.core import flow as flow_mod
@@ -110,8 +94,8 @@ def _integrate(p, state, omega, v, step, adaptive, dl):
     """Shared tail of the loop body: stops, exp update, ell update."""
     stop1 = (jnp.linalg.norm(omega) < p.eps) & (jnp.linalg.norm(v) < p.eps)
     dR, dT = se3.exp_sek3(omega, v, step)
-    # pinned (see core/registration.py / se3.py: bf16-default 3x3
-    # matmuls stall contraction above the 5e-5 stop on TPU)
+    # pinned (see core/registration.py / se3.py: reduced-precision 3x3
+    # matmuls stall contraction above the 5e-5 stop)
     _hi = jax.lax.Precision.HIGHEST
     R_new = jnp.where(stop1, state.R, jnp.matmul(state.R, dR, precision=_hi))
     T_new = jnp.where(
@@ -146,67 +130,47 @@ def _integrate(p, state, omega, v, step, adaptive, dl):
 # Row-sharded align (Gram tensor parallelism)
 # ---------------------------------------------------------------------------
 
-def _sharded_pallas_eligible(p, adaptive, n_local, m):
-    """The Pallas moment path engages when the params ask for it and the
-    per-device row block is tileable.  Exclusions mirror
-    core.registration.align's fused->pallas->xla fallback chain:
-    yy_quirk emulation and adaptive linear mode are XLA-only, and the
-    kernels tile in 128-lane blocks."""
-    if getattr(p, "backend", "xla") not in ("pallas", "fused"):
-        return False
-    if adaptive and (p.yy_quirk or p.color_mode == "linear"):
-        return False
-    return not (n_local % 128 or m % 128)
+def _use_kernel(p):
+    """The moment kernel runs when the params ask for it (params
+    refuse the combinations it does not implement)."""
+    return getattr(p, "backend", "xla") == "pallas"
 
 
-def _maybe_kd_sort(p, adaptive, fixed, moving, nsp, both=False):
-    """Globally kd-sort the clouds before shard_map when the Pallas
-    moment path will engage: sharded row blocks become contiguous kd
-    cells, so the per-device AABB tile pruning actually prunes (see
-    core/cloud.kd_sort).  Unconditional on tile_skip — the single-chip
-    pallas align sorts unconditionally too, keeping the paths on the
-    same point order.  `both=True` (the ring) requires the moving
-    capacity to shard too."""
-    n_local = fixed.capacity // nsp
-    m_for_check = moving.capacity // nsp if both else moving.capacity
-    if not _sharded_pallas_eligible(p, adaptive, n_local, m_for_check):
-        return fixed, moving
-    from cvo_rgbd_tpu.core.cloud import kd_sort
+def _kernel_order(p, fixed, moving):
+    """Globally kd-sort the clouds before shard_map when the moment
+    kernel will run: sharded row blocks become contiguous kd cells, so
+    the per-device AABB tile pruning actually prunes (see
+    core/registration.kernel_order — the same order as the
+    single-device align)."""
+    from cvo_rgbd_tpu.core.registration import kernel_order
 
-    return kd_sort(fixed), kd_sort(moving)
+    return kernel_order(p, fixed), kernel_order(p, moving)
 
 
 def _make_sharded_inner(p, axis, adaptive, nsp):
     """Per-shard align body: x arrays are row-shards, y replicated
     within `axis` groups.  Used by align_sharded and train_step_2d.
 
-    With `p.backend` in ("pallas", "fused") each device runs the SAME
-    single-pass moment kernel as the single-chip product
-    (ops/pallas_moments.py) on its local [N/sp, M] row block: one tile
+    With `p.backend == "pallas"` each device runs the SAME
+    single-pass moment kernel as the single-device align
+    (ops/moment_kernel.py) on its local [N/sp, M] row block: one tile
     sweep accumulates the local moment matrix Mom_l = A_l^T Phi(x'_l),
     the flow/step reductions are O(M) epilogues on Mom_l
     (core/moments.py — they are LINEAR in Mom, so per-shard epilogues
     psum exactly like the reference's mutex-guarded partials,
     cvo.cpp:201-204), and the iteration keeps the two packed psums of
-    the XLA path.  Per-device per-iteration cost therefore matches the
-    single-chip Pallas floor instead of the ~3x dense-XLA block path
-    (VERDICT r4 item 1)."""
+    the XLA path."""
 
-    use_pallas_cfg = _sharded_pallas_eligible(p, adaptive, 128, 128)
-    if use_pallas_cfg:
+    use_pallas = _use_kernel(p)
+    if use_pallas:
         from cvo_rgbd_tpu.core.moments import (
             flow_from_moments,
-            monomial_features_padded,
             step_from_moments,
         )
-        from cvo_rgbd_tpu.ops import color_gram, fused_moments, fused_wsq
+        from cvo_rgbd_tpu.core.step_factored import monomial_features
+        from cvo_rgbd_tpu.ops import fused_moments, fused_wsq
 
     def inner(xp, xf, xm, yp0, yf, ym):
-        n_local, m = xp.shape[0], yp0.shape[0]
-        use_pallas = use_pallas_cfg and _sharded_pallas_eligible(
-            p, adaptive, n_local, m
-        )
-        linear = p.color_mode == "linear"
         # x_full needed only for the adaptive Axx columns; the fixed
         # cloud never moves, so gather once outside the loop.
         if adaptive:
@@ -217,64 +181,25 @@ def _make_sharded_inner(p, axis, adaptive, nsp):
 
         if use_pallas:
             # Loop-invariant per-align precomputation (the sharded
-            # analog of registration.build_moments_pre /
-            # build_ck_caches).  c0 is the GLOBAL masked centroid of
-            # the fixed cloud — every shard centers identically, so
-            # the psum'd moments match the single-chip ones.
+            # analog of registration.build_moments_pre).  c0 is the
+            # GLOBAL masked centroid of the fixed cloud — every shard
+            # centers identically, so the psum'd moments match the
+            # single-device ones.
             w = xm.astype(jnp.float32)
             s_g, n_g = jax.lax.psum(
                 (jnp.sum(xp * w[:, None], axis=0), jnp.sum(w)), axis
             )
             c0 = s_g / jnp.maximum(n_g, 1.0)
             x_c = xp - c0
-            phi = monomial_features_padded(x_c)
-            use_skip = getattr(p, "tile_skip", True)
-            md_xx = md_yy = None
-            if use_skip:
-                # AABB tile pruning (ops/pallas_gram): the caller
-                # kd-sorted the clouds globally, so local row blocks
-                # are compact kd cells.  x bounds + the self-pair
-                # prune matrices are loop-invariant.
-                from cvo_rgbd_tpu.ops.pallas_gram import (
-                    _tile, aabb_min_d2, block_bounds,
-                )
-
-                lo_xl, hi_xl = block_bounds(xp, xm, _tile(n_local))
-                if adaptive:
-                    lo_xf, hi_xf = block_bounds(
-                        xp_full, xm_full, _tile(xp_full.shape[0])
-                    )
-                    md_xx = aabb_min_d2(lo_xl, hi_xl, lo_xf, hi_xf)
-                    lo_y0, hi_y0 = block_bounds(yp0, ym, _tile(m))
-                    md_yy = aabb_min_d2(lo_y0, hi_y0, lo_y0, hi_y0)
-            ck_xy = ck_xx = ck_yy = None
-            if linear:
-                # the pre-masked CI tile IS the cache (see
-                # registration.prepare_ci): local x rows vs full y
-                ci = gram_mod.linear_color_gram(xf, yf, p.color_scale)
-                ck_xy = jnp.where(
-                    (xm[:, None] > 0) & (ym[None, :] > 0), ci, 0.0
-                )
-            elif getattr(p, "ck_cache", True):
-                ck_xy = color_gram(xp, xf, xm, yp0, yf, ym, p=p)
-                if adaptive:
-                    ck_xx = color_gram(
-                        xp, xf, xm, xp_full, xf_full, xm_full, p=p
-                    )
-                    ck_yy = color_gram(yp0, yf, ym, yp0, yf, ym, p=p)
+            phi = monomial_features(x_c)
 
         def pallas_body(state):
             tf_R, tf_T = se3.se3_inv(state.R, state.T)
             tf = se3.make_se3(tf_R, tf_T)
             yp = transform_cloud(tf_R, tf_T, yp0)
 
-            md_xy = None
-            if use_skip:
-                lo_y, hi_y = block_bounds(yp, ym, _tile(m))
-                md_xy = aabb_min_d2(lo_xl, hi_xl, lo_y, hi_y)
             Mom_l, nnz_l = fused_moments(
-                x_c, xf, xm, yp - c0, yf, ym, phi, state.ell, ck_xy,
-                md_xy, p=p,
+                x_c, xf, xm, yp - c0, yf, ym, phi, state.ell, p=p,
             )
             om_l, v_l, wsq_l, _ = flow_from_moments(
                 Mom_l, yp, c0, c=p.c, d=p.d
@@ -287,10 +212,10 @@ def _make_sharded_inner(p, axis, adaptive, nsp):
                 # (full y x y), exactly like the XLA path's s_yy.
                 wsq_xx_l, nnz_xx_l = fused_wsq(
                     xp, xf, xm, xp_full, xf_full, xm_full,
-                    state.ell, ck_xx, md_xx, p=p, symmetric=(nsp == 1),
+                    state.ell, p=p, symmetric=(nsp == 1),
                 )
                 wsq_yy, nnz_yy = fused_wsq(
-                    yp, yf, ym, yp, yf, ym, state.ell, ck_yy, md_yy,
+                    yp, yf, ym, yp, yf, ym, state.ell,
                     p=p, symmetric=True,
                 )
                 omega, v, s_xy, s_xx, nnz_xx, nnz_xy = jax.lax.psum(
@@ -321,9 +246,8 @@ def _make_sharded_inner(p, axis, adaptive, nsp):
             # dependencies on cross-shard sums (flow before the
             # omega-dependent line search), so all partial reductions
             # ride TWO psum calls instead of up to eleven.  Small
-            # psums are pure latency on real ICI (~2 us/call, see the
-            # comms model in docs/PERF.md), so packing them is the
-            # single biggest lever on sp-sharded per-iteration time.
+            # psums are pure latency, so packing them matters most for
+            # sp-sharded per-iteration time.
             A = _se_gram(p, xp, xf, xm, yp, yf, ym, state.ell)
             om_l, v_l = flow_mod.flow(A, xp, yp, c=p.c, d=p.d)
 
@@ -355,7 +279,7 @@ def _make_sharded_inner(p, axis, adaptive, nsp):
                 omega, v = jax.lax.psum((om_l, v_l), axis)
                 dl = jnp.zeros((), jnp.float32)
 
-            # moment-factored on the local block (one MXU matmul per
+            # moment-factored on the local block (one matmul per
             # device, no [N/sp, M] field materialization); the
             # per-shard A-weighted centering is exact, so the psum'd
             # coefficients match the unsharded ones
@@ -392,16 +316,16 @@ def align_sharded(p, mesh, fixed: PointCloud, moving: PointCloud,
         raise ValueError(
             f"fixed capacity {fixed.capacity} not divisible by {axis}={nsp}"
         )
-    fixed, moving = _maybe_kd_sort(p, adaptive, fixed, moving, nsp)
+    fixed, moving = _kernel_order(p, fixed, moving)
     inner = _make_sharded_inner(p, axis, adaptive, nsp)
     spec_x = (P(axis, None), P(axis, None), P(axis))
     spec_y = (P(None, None), P(None, None), P(None))
     out = jax.tree_util.tree_map(lambda _: P(), _finish(_init_state(p, adaptive)))
-    fn = shard_map(
+    fn = jax.shard_map(
         inner, mesh=mesh,
         in_specs=spec_x + spec_y,
         out_specs=out,
-        check_rep=False,
+        check_vma=False,
     )
     return fn(fixed.positions, fixed.features, fixed.mask,
               moving.positions, moving.features, moving.mask)
@@ -425,17 +349,9 @@ def train_step_2d(p, mesh, fixed_b: PointCloud, moving_b: PointCloud,
             f"batch {B} must divide {dp}={ndp}; capacity "
             f"{fixed_b.capacity} must divide {sp}={nsp}"
         )
-    if _sharded_pallas_eligible(
-        p, adaptive, fixed_b.capacity // nsp, moving_b.capacity
-    ):
-        # unconditional on tile_skip, like every other pallas path
-        # (_maybe_kd_sort / registration.py): sorting only when the
-        # skip is on would reassociate the fp32 reductions and break
-        # the skip-on/off bitwise A-B comparisons (CLAUDE.md).
-        from cvo_rgbd_tpu.core.cloud import kd_sort
-
-        fixed_b = jax.vmap(kd_sort)(fixed_b)
-        moving_b = jax.vmap(kd_sort)(moving_b)
+    fixed_b, moving_b = jax.vmap(
+        functools.partial(_kernel_order, p)
+    )(fixed_b, moving_b)
     inner = _make_sharded_inner(p, sp, adaptive, nsp)
 
     def batched_inner(xp, xf, xm, yp, yf, ym):
@@ -452,9 +368,9 @@ def train_step_2d(p, mesh, fixed_b: PointCloud, moving_b: PointCloud,
     out = jax.tree_util.tree_map(
         lambda a: P(dp, *([None] * jnp.ndim(a))), proto
     )
-    fn = shard_map(
+    fn = jax.shard_map(
         batched_inner, mesh=mesh,
-        in_specs=spec_x + spec_y, out_specs=out, check_rep=False,
+        in_specs=spec_x + spec_y, out_specs=out, check_vma=False,
     )
     return fn(fixed_b.positions, fixed_b.features, fixed_b.mask,
               moving_b.positions, moving_b.features, moving_b.mask)
@@ -478,40 +394,33 @@ def align_ring(p, mesh, fixed: PointCloud, moving: PointCloud,
     Peak per-device Gram block is [N/sp, M/sp] — no device ever holds
     a whole cloud or a whole Gram matrix.
 
-    With `p.backend` in ("pallas", "fused") and 128-divisible blocks,
-    the iteration collapses to ONE sweep: the visiting y block carries
-    its moment block Mom_b = A[:, b]^T Phi(x') around the ring — each
-    device adds its resident rows' contribution (ops/pallas_moments.py
-    fused_moments) and, for adaptive params, the Axx/Ayy wsq partials
+    With `p.backend == "pallas"` the iteration collapses to ONE sweep:
+    the visiting y block carries its moment block
+    Mom_b = A[:, b]^T Phi(x') around the ring — each device adds its
+    resident rows' contribution (ops/moment_kernel.py fused_moments) and, for adaptive params, the Axx/Ayy wsq partials
     (fused_wsq) in the same hop.  After a full cycle every block is
     home with its complete moments, and flow AND line-search
     coefficients are O(M/sp) epilogues (core/moments.py) + two packed
     psums — the omega-dependent second Gram sweep disappears
     entirely (the reference's second nnz(A) traversal,
-    cvo.cpp:213-308).  Color kernels are recomputed in-kernel
-    (no [N/sp, M] cache: ring mode exists for clouds where that
-    allocation is the problem).
+    cvo.cpp:213-308).  Color kernels are recomputed in-kernel.
     """
     adaptive = isinstance(p, AcvoParams)
     nsp = mesh.shape[axis]
     if fixed.capacity % nsp or moving.capacity % nsp:
         raise ValueError("cloud capacities must divide the ring size")
 
-    fixed, moving = _maybe_kd_sort(p, adaptive, fixed, moving, nsp,
-                                   both=True)
-    use_pallas_cfg = _sharded_pallas_eligible(
-        p, adaptive, fixed.capacity // nsp, moving.capacity // nsp
-    )
+    fixed, moving = _kernel_order(p, fixed, moving)
+    use_pallas_cfg = _use_kernel(p)
     if use_pallas_cfg:
         from cvo_rgbd_tpu.core.moments import (
             flow_from_moments,
-            monomial_features_padded,
             step_from_moments,
         )
+        from cvo_rgbd_tpu.core.step_factored import monomial_features
         from cvo_rgbd_tpu.ops import fused_moments, fused_wsq
 
     def inner(xp, xf, xm, yp0_blk, yf_blk, ym_blk):
-        linear = p.color_mode == "linear"
         m_local = yp0_blk.shape[0]
         if adaptive:
             # total valid fixed points + this shard's global row base in
@@ -549,20 +458,7 @@ def align_ring(p, mesh, fixed: PointCloud, moving: PointCloud,
             )
             c0 = s_g / jnp.maximum(n_g, 1.0)
             x_c = xp - c0
-            phi = monomial_features_padded(x_c)
-            use_skip = getattr(p, "tile_skip", True)
-            if use_skip:
-                from cvo_rgbd_tpu.ops.pallas_gram import (
-                    _tile, aabb_min_d2, block_bounds,
-                )
-
-                t_loc = _tile(xp.shape[0])
-                t_blk = _tile(m_local)
-                lo_xl, hi_xl = block_bounds(xp, xm, t_loc)
-                if adaptive:
-                    # yy prune is rigid-invariant: resident home-block
-                    # bounds from the untransformed y block
-                    lo_yh, hi_yh = block_bounds(yp0_blk, ym_blk, t_blk)
+            phi = monomial_features(x_c)
 
         def ring_sweep_carrying(carry_init, payload, blk_fn):
             """Like ring_sweep, but blk_fn also UPDATES the payload —
@@ -595,48 +491,23 @@ def align_ring(p, mesh, fixed: PointCloud, moving: PointCloud,
                 else:
                     ypb0, yfb, ymb, mom = blk
                 ypb = transform_cloud(tf_R, tf_T, ypb0)
-                ck = None
-                if linear:
-                    # per-hop CI tile: resident x rows vs visiting
-                    # block (rkhs_se3_registration.m:108) — one small
-                    # matmul, no [N/sp, M] cache
-                    ci = gram_mod.linear_color_gram(
-                        xf, yfb, p.color_scale
-                    )
-                    ck = jnp.where(
-                        (xm[:, None] > 0) & (ymb[None, :] > 0), ci, 0.0
-                    )
-                md = md_xx_b = md_yy_b = None
-                if use_skip:
-                    # visiting-block tile bounds: O(blk) reduce per hop
-                    lo_yb, hi_yb = block_bounds(ypb, ymb, t_blk)
-                    md = aabb_min_d2(lo_xl, hi_xl, lo_yb, hi_yb)
-                    if adaptive:
-                        lo_xb, hi_xb = block_bounds(xpb, xmb, t_loc)
-                        md_xx_b = aabb_min_d2(lo_xl, hi_xl, lo_xb, hi_xb)
-                        lo_y0b, hi_y0b = block_bounds(ypb0, ymb, t_blk)
-                        md_yy_b = aabb_min_d2(lo_yh, hi_yh, lo_y0b,
-                                              hi_y0b)
                 contrib, nnz = fused_moments(
-                    x_c, xf, xm, ypb - c0, yfb, ymb, phi, state.ell,
-                    ck, md, p=p,
+                    x_c, xf, xm, ypb - c0, yfb, ymb, phi, state.ell, p=p,
                 )
-                mom = mom + contrib[:, :35]
+                mom = mom + contrib
                 if adaptive:
                     sxx_c, nxx_c = fused_wsq(
-                        xp, xf, xm, xpb, xfb, xmb, state.ell, None,
-                        md_xx_b, p=p,
+                        xp, xf, xm, xpb, xfb, xmb, state.ell, p=p,
                     )
                     syy_c, nyy_c = fused_wsq(
                         yp_home, yf_blk, ym_blk, ypb, yfb, ymb,
-                        state.ell, None, md_yy_b, p=p,
+                        state.ell, p=p,
                     )
                     # carry order (sxx, syy, nxx, nyy, nxy) matches the
                     # psum unpack below and the XLA ring body's tuple —
                     # a (sxx, nxx, syy, ...) swap here silently feeds dl
                     # a pair COUNT as its yy distance sum and slams ell
-                    # to the floor on iteration 1 (caught by on-chip
-                    # ell-trajectory comparison, round 5).
+                    # to the floor on iteration 1.
                     carry = (
                         carry[0] + sxx_c, carry[1] + syy_c,
                         carry[2] + nxx_c, carry[3] + nyy_c,
@@ -778,8 +649,9 @@ def align_ring(p, mesh, fixed: PointCloud, moving: PointCloud,
     out = jax.tree_util.tree_map(
         lambda _: P(), _finish(_init_state(p, adaptive))
     )
-    fn = shard_map(
-        inner, mesh=mesh, in_specs=spec + spec, out_specs=out, check_rep=False
+    fn = jax.shard_map(
+        inner, mesh=mesh, in_specs=spec + spec, out_specs=out,
+        check_vma=False,
     )
     return fn(fixed.positions, fixed.features, fixed.mask,
               moving.positions, moving.features, moving.mask)

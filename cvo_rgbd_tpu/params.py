@@ -15,6 +15,16 @@ from __future__ import annotations
 import dataclasses
 
 
+BACKENDS = ("xla", "pallas")
+
+
+def _check_backend(p):
+    if p.backend not in BACKENDS:
+        raise ValueError(
+            f"unknown backend {p.backend!r}; expected one of {BACKENDS}"
+        )
+
+
 @dataclasses.dataclass(frozen=True)
 class CvoParams:
     """Fixed-schedule CVO (cvo.cpp:25-41)."""
@@ -30,13 +40,13 @@ class CvoParams:
     max_iter: int = 2000        # (cvo.cpp:38)
     min_step: float = 0.2       # (cvo.cpp:39)
     max_step: float = 0.8       # step clamp (cvo.cpp:307)
-    # The C++ shipped stops, REACHABLE in fp32 since round 4 (the
-    # difference-form flow epilogues + precise exp + pinned SE(3)
-    # matmuls; docs/PERF.md "Converging at the reference's own
-    # tolerances"): reference-scale pairs converge in ~60 iterations
-    # (the float64 oracle needs 66).  The MATLAB set (5e-4/1e-4,
-    # MATLAB_PARAMS below) halves iteration counts at a measured
-    # ~1 mm pose delta — use it when wall time matters.
+    # The C++ shipped stops, reachable in fp32 (the difference-form
+    # flow epilogues + precise exp + pinned SE(3) matmuls; PERF.md
+    # "Numerics that the C++ stops need"): reference-scale pairs
+    # converge in about as many iterations as the float64 oracle.  The
+    # MATLAB set (5e-4/1e-4, MATLAB_PARAMS below) about halves
+    # iteration counts at a ~1 mm pose delta — use it when wall time
+    # matters.
     eps: float = 5e-5           # flow-norm stop (cvo.cpp:40)
     eps_2: float = 1e-5         # se3-distance stop (cvo.cpp:41)
     # ell schedule: k>2 -> 0.10, k>9 -> 0.06, k>19 -> 0.03 (cvo.cpp:408-410)
@@ -46,31 +56,28 @@ class CvoParams:
     # inner product, precomputed once (rkhs_se3_registration.m:40-53).
     color_mode: str = "se"
     # compute backend for the inner loop: "xla" (dense masked Gram in
-    # HBM), "pallas" (fused tile kernels, Gram never materialized), or
-    # "fused" (the whole align loop as one Pallas kernel; problems it
-    # cannot hold fall back to pallas/xla).
+    # device memory) or "pallas" (the single-sweep moment kernel,
+    # ops/moment_kernel.py: the Gram is never materialized).
     backend: str = "xla"
-    # pallas backend only: cache the loop-invariant color kernel in HBM
-    # ([N,M] f32 per pair — 1.2-1.3x faster per iteration, but O(N*M)
-    # HBM per batched lane; disable when memory-bound).
-    ck_cache: bool = True
     # line-search reduction: "factored" = moment-factored single matmul
     # (no [N,M] intermediates, centered for fp32 stability); "direct" =
     # literal per-pair field evaluation (cvo.cpp:249-289).
     step_mode: str = "factored"
     # Gram exponential: "precise" = libm-grade exp_neg
-    # (core/numerics.py; required for the C++ shipped stops 5e-5/1e-5 —
-    # hardware exp's ~1.2e-6 error jitters the sparsity gates and
-    # stalls convergence at reference scale, docs/PERF.md); "fast" =
-    # hardware exp (~30% cheaper iterations, converges fine at the
-    # MATLAB stops 5e-4/1e-4 — exactly the round-3 configuration).
+    # (core/numerics.py; needed for the C++ shipped stops 5e-5/1e-5
+    # where the hardware exp is approximate enough to jitter the
+    # sparsity gates; whether the H100 needs it is ROADMAP S6);
+    # "fast" = hardware exp, which converges at the MATLAB stops.
     exp_mode: str = "precise"
     # pallas backend only: EXACT tile-level sparsity skipping — per-tile
     # AABB lower bounds prune tile pairs wholly outside the position
-    # gate radius (the kd-tree radius pruning of cvo.cpp:119-125 at MXU
-    # granularity; skipped tiles contribute exactly 0).  At converged
-    # length-scales most tiles of a room-scale cloud skip.
+    # gate radius (the kd-tree radius pruning of cvo.cpp:119-125 at
+    # tile granularity; skipped tiles contribute exactly 0).  At
+    # converged length-scales most tiles of a room-scale cloud skip.
     tile_skip: bool = True
+
+    def __post_init__(self):
+        _check_backend(self)
 
     @property
     def c_sp_thres(self) -> float:
@@ -114,7 +121,6 @@ class AcvoParams:
     # against the reference binaries.
     yy_quirk: bool = False
     backend: str = "xla"  # "xla" | "pallas" (yy_quirk needs "xla")
-    ck_cache: bool = True  # see CvoParams.ck_cache (x3 caches for acvo)
     step_mode: str = "factored"  # see CvoParams.step_mode
     exp_mode: str = "precise"  # see CvoParams.exp_mode
     tile_skip: bool = True  # see CvoParams.tile_skip
@@ -124,18 +130,26 @@ class AcvoParams:
     # "cheb": the four reduction values are functions of ell ALONE
     # (self-distances are rigid-invariant), so they are tabulated ONCE
     # per align at Chebyshev nodes in log(1/2ell^2) and interpolated
-    # per iteration — removes both per-iteration self sweeps (~the
-    # entire acvo-over-cvo cost: measured 0.393 -> 0.193 ms/iter at
-    # N=3072, within 6% of plain cvo) at a measured ~0.4% value error
-    # that heavy cancellation in dl's numerator amplifies to a few
-    # percent of dl.  The perturbed ell trajectory costs ~15% more
-    # iterations (still ~1.8x faster wall) and shifts the converged
-    # pose at the C++ stops by sub-mm typically, 2.7 mm worst-case
-    # across 8 reference-scale probe pairs.  Keep "exact" (default)
-    # when dl parity or worst-case pose fidelity matters; "cheb" is
-    # the throughput configuration.
+    # per iteration — removes both per-iteration self sweeps (about
+    # the whole acvo-over-cvo cost) at a ~0.4% value error that heavy
+    # cancellation in dl's numerator amplifies to a few percent of dl.
+    # The perturbed ell trajectory costs ~15% more iterations and
+    # shifts the converged pose at the C++ stops by sub-mm typically,
+    # 2.7 mm worst-case across 8 reference-scale probe pairs.  Keep
+    # "exact" (default) when dl parity or worst-case pose fidelity
+    # matters; "cheb" is the throughput configuration.
     self_mode: str = "exact"
     self_cheb_k: int = 12  # Chebyshev node count for self_mode="cheb"
+
+    def __post_init__(self):
+        _check_backend(self)
+        if self.backend == "pallas" and (
+            self.yy_quirk or self.color_mode == "linear"
+        ):
+            raise ValueError(
+                "the pallas backend runs acvo in se color mode without "
+                "yy_quirk; use backend='xla'"
+            )
 
 
 # MATLAB prototype parameter set (rkhs_se3_registration.m:7-36): linear

@@ -1,6 +1,6 @@
 """Lie-group math for SO(3)/SE(3)/SE_K(3) — jittable, vmap-safe, fp32-first.
 
-TPU-native re-design of the reference Lie group library
+Re-design of the reference Lie group library
 (reference: cpp/rkhs_registration/src/LieGroup.cpp:20-199).  Differences
 from the reference are deliberate:
 
@@ -10,7 +10,7 @@ from the reference are deliberate:
 - `dist_se3` uses the closed-form SE(3) log (2*|w|^2 + |u|^2 under the
   Frobenius norm) instead of Eigen's generic dense `MatrixBase::log()`
   (cvo.cpp:71-81), which would be a nonsymmetric eigendecomposition and
-  is hostile to the MXU;
+  is hostile to jit;
 - small-angle limits use second-order Taylor series so gradients stay
   finite (the reference just snaps to identity).
 
@@ -26,14 +26,11 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-# EVERY matmul in the SE(3) algebra is precision-pinned: on TPU the
-# default lowers 3x3 products to bf16 MXU passes, and that roughness in
-# the R @ dR update chain alone is enough to stall the align loop's
-# contraction at reference scale in a |flow| ~ 3e-4 limit cycle, above
-# the reference's eps=5e-5 stop — measured on-chip: with bf16-default
-# small matmuls 1/8 pairs converge at the C++ tolerances; with every
-# matmul pinned, 8/8 in 60 iterations (the float64 oracle needs 66).
-# See docs/PERF.md, "Converging at the reference's own tolerances".
+# EVERY matmul in the SE(3) algebra is precision-pinned: a reduced-
+# precision default (bf16 passes, or TF32 on a GPU) makes the R @ dR update chain rough enough to stall the
+# align loop's contraction at reference scale in a |flow| ~ 3e-4 limit
+# cycle, above the reference's eps=5e-5 stop.  See PERF.md,
+# "Numerics that the C++ stops need".
 import functools as _functools
 
 _mm = _functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)

@@ -254,7 +254,7 @@ def make_tum_dataset(root, path: CameraPath, scene: BandScene | None = None,
     poses is [n,4,4] camera-to-world ground truth.  `degrade` applies
     the sensor-degradation model per frame before writing.
     """
-    from PIL import Image
+    from cvo_rgbd_tpu.io.png import write_png
 
     scene = scene or BandScene()
     root = str(root)
@@ -272,12 +272,10 @@ def make_tum_dataset(root, path: CameraPath, scene: BandScene | None = None,
                 rgb, depth = degrade.apply(i, rgb, depth)
             t = start_time + frame_dt * i
             name = f"{t:.6f}"
-            Image.fromarray(rgb.astype(np.uint8)).save(
-                os.path.join(root, "rgb", f"{name}.png")
-            )
-            Image.fromarray(
-                (depth * scene.cam.scaling_factor).astype(np.uint16)
-            ).save(os.path.join(root, "depth", f"{name}.png"))
+            write_png(os.path.join(root, "rgb", f"{name}.png"),
+                      rgb.astype(np.uint8))
+            write_png(os.path.join(root, "depth", f"{name}.png"),
+                      (depth * scene.cam.scaling_factor).astype(np.uint16))
             lines.append(f"{name} rgb/{name}.png {name} depth/{name}.png")
             pose = np.eye(4)
             pose[:3, :3] = R

@@ -1,9 +1,10 @@
 #!/usr/bin/env bash
-# CI smoke run — the cvo_test.sh analog (script/cvo_test.sh:1-7):
-# registers the vendored fr1/desk fixture clouds end to end and runs
-# the unit suite's fast subset.
+# Smoke run — the cvo_test.sh analog (script/cvo_test.sh:1-7): the main
+# path on the GPU (chip_smoke.py: odometry CLI, numerics canaries, the
+# moment kernel against its reference), the toy example, and the unit
+# suite's fast subset on the CPU.
 set -euo pipefail
 cd "$(dirname "$0")/.."
-python bench.py
+python chip_smoke.py
 python examples/toy_example.py /tmp/toy_scene_smoke.ply
-python -m pytest tests/test_core.py tests/test_se3.py -x -q
+JAX_PLATFORMS=cpu python -m pytest tests/test_core.py tests/test_se3.py -x -q

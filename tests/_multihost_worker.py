@@ -29,7 +29,6 @@ def main():
     import numpy as np
 
     from cvo_rgbd_tpu.parallel import make_mesh, multihost_initialize
-    from cvo_rgbd_tpu.parallel.sharded import shard_map
 
     multihost_initialize(
         coordinator_address=f"127.0.0.1:{port}",
@@ -53,11 +52,12 @@ def main():
     garr = jax.make_array_from_process_local_data(
         NamedSharding(mesh, P(("dp", "sp"))), local, (8,)
     )
-    f = shard_map(
+    f = jax.shard_map(
         lambda x: jax.lax.psum(x, ("dp", "sp")),
         mesh=mesh,
         in_specs=P(("dp", "sp")),
         out_specs=P(),
+        check_vma=False,
     )
     out = jax.jit(f)(garr)
     val = float(np.asarray(out.addressable_data(0))[0])
@@ -65,7 +65,7 @@ def main():
     print(f"worker {pid} OK psum={val}", flush=True)
 
     # ---- a REAL collective align across the process boundary
-    # (VERDICT r4 item 7): train_step_2d with dp across the two
+    #: train_step_2d with dp across the two
     # processes (the DCN-analog axis) x sp within each process; every
     # per-iteration psum of the align loop crosses DCN.  Each process
     # computes its own lane's single-device reference and checks its

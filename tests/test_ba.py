@@ -144,7 +144,7 @@ def _synthetic_sparse(rng, k=16, m=5000, obs_per_lm=4, noise=0.001,
                       perturb=0.03):
     """Partial-visibility problem at map scale: each landmark observed
     by a few random keyframes — the sparse edge structure the
-    edge-block Schur solver is built for (VERDICT r1 item 6)."""
+    edge-block Schur solver is built for."""
     landmarks = rng.uniform(-2, 2, (m, 3)).astype(np.float32) + [0, 0, 4.0]
     poses = []
     for i in range(k):

@@ -161,7 +161,7 @@ def test_slam_cli(tmp_path, capsys, rng):
 def test_run_tolerance_flags(synth_dataset, tmp_path, capsys):
     """--matlab-tol / --eps overrides build the right params: the
     MATLAB stop set roughly halves iteration counts vs the shipped C++
-    stops (docs/PERF.md stop-set equivalence)."""
+    stops (PERF.md stop-set equivalence)."""
     from cvo_rgbd_tpu.cli import _make_params
 
     import argparse

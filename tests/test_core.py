@@ -304,7 +304,7 @@ def test_exp_mode_fast_matches_precise_at_matlab_stops(rng):
     """params.exp_mode="fast" (hardware exp, ~30% cheaper kernels)
     must converge at the MATLAB stops with poses at the stop-set
     tolerance of the precise default (the round-3 configuration;
-    docs/PERF.md round-4 study for why "precise" is the default)."""
+    PERF.md numerics findings for why "precise" is the default)."""
     import dataclasses
     import functools
 
@@ -341,7 +341,7 @@ def test_kd_sort_invariants(rng):
 
     from cvo_rgbd_tpu import pad_cloud
     from cvo_rgbd_tpu.core.cloud import kd_sort
-    from cvo_rgbd_tpu.ops.pallas_gram import block_bounds
+    from cvo_rgbd_tpu.ops.moment_kernel import block_bounds
 
     pts = rng.uniform(-2, 2, (1000, 3)).astype(np.float32)
     feat = rng.random((1000, 5)).astype(np.float32)

@@ -1,5 +1,5 @@
 """Sensor-degradation realism + the skip-and-mark failure path
-(VERDICT r3 item 4).
+.
 
 The reference ingests real Kinect data — noisy quantized depth with
 holes and texture-poor frames (pcd_generator.cpp:135-163's Canny

@@ -96,7 +96,7 @@ def test_rpe_constant_error():
 
 
 # ---------------------------------------------------------------------------
-# Real-data baseline minting (VERDICT r4 item 2): the vendored fr1/desk
+# Real-data baseline minting: the vendored fr1/desk
 # artifacts are the only reference baselines mintable in this
 # environment; these tests pin the parser to the REAL files and the
 # minted numbers to BASELINE.md.

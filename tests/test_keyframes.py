@@ -73,7 +73,7 @@ def test_aligned_fip_ranks_true_transform(rng):
     """aligned_fip scores a pair under K candidate SE(3)s in one call;
     the TRUE registration must outrank drift-scale offsets (this is the
     arbiter slam loop closure uses to choose between prior-init and
-    cold-init registrations — docs/PERF.md round-3 study)."""
+    cold-init registrations)."""
     from cvo_rgbd_tpu import se3
     from cvo_rgbd_tpu.keyframes import aligned_fip
 
@@ -99,8 +99,7 @@ def test_aligned_fip_ranks_true_transform(rng):
 def test_linear_mode_keyframe_scoring(rng):
     """function_inner_product under MATLAB_PARAMS (linear color mode)
     must evaluate the MATLAB product kernel A = CI .* K — not the se
-    color kernel that parameter set never calibrated (VERDICT r3
-    weak 7).  Scoring semantics still hold: self-score 1, overlap
+    color kernel that parameter set never calibrated.  Scoring semantics still hold: self-score 1, overlap
     decays with displacement."""
     from cvo_rgbd_tpu import MATLAB_PARAMS
     from cvo_rgbd_tpu.core.registration import function_inner_product

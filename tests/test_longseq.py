@@ -1,4 +1,4 @@
-"""Sequence-scale end-to-end validation (VERDICT r2 item 1).
+"""Sequence-scale end-to-end validation.
 
 The reference's primary product is a 573-frame trajectory
 (cvo_main.cpp:36-66 looping assoc.txt; acceptance via
@@ -125,7 +125,7 @@ def test_longseq_odometry_acvo(loop_dataset, gt):
 def test_longseq_slam_loop_closure(loop_dataset, gt, clouds):
     """Keyframe SLAM over all 160 frames: loop closures FIRE on the
     periodic revisits, and the pose-graph solve measurably beats the
-    raw keyframe odometry (VERDICT r2 item 1); BA refinement runs on
+    raw keyframe odometry; BA refinement runs on
     the solved keyframes and reduces its cost."""
     from cvo_rgbd_tpu.keyframes import KeyframePolicy
     from cvo_rgbd_tpu.slam import KeyframeSlam, SlamConfig

@@ -47,6 +47,16 @@ TRANS_TOL_M = 8e-3    # measured max 4.3 mm; margin for platform drift
 ROT_TOL_RAD = 8e-3    # measured max 4.2e-3 rad
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _needs_reference_data():
+    """The stored run and fixture clouds are not vendored in every
+    checkout; without them these tests skip (decided per test)."""
+    import os
+
+    if not os.path.exists(MAT):
+        pytest.skip("reference dataset not vendored")
+
+
 @pytest.fixture(scope="module")
 def stored():
     return read_stored_run(MAT)
@@ -105,7 +115,7 @@ def test_pairwise_transforms_match_stored_matlab_run(stored, fixture_clouds):
 
 
 def test_converged_parity_sub_mm(stored, fixture_clouds):
-    """The closed parity loop (VERDICT r4 item 6): at the C++ shipped
+    """The closed parity loop: at the C++ shipped
     stops the converged optimum agrees with the stored MATLAB
     transforms to sub-mm on every vendored pair — the registration
     math matches; the looser headline tolerance above is stopping-rule
@@ -187,7 +197,7 @@ def test_batch_runner_matches_stored(stored, tmp_path):
     """The MATLAB-analog batch driver (batch.run_batch — the
     rgbddataset_rkhs.m re-expression) over the vendored pcd_ds/
     directory reproduces the stored .mat per-pair transforms AND the
-    accumulated chain (VERDICT r1 item 7): same data as the API-level
+    accumulated chain: same data as the API-level
     parity tests above, exercised through directory loading, the
     preprocessing defaults, skip-and-mark, and the npz writer."""
     from cvo_rgbd_tpu.batch import run_batch

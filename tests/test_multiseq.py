@@ -86,7 +86,7 @@ def test_batched_motion_prior_matches(synth_dataset, tmp_path):
 
 def test_multiseq_ragged_lanes(synth_dataset, tmp_path):
     """Lanes of different lengths: the short lane retires when its
-    sequence ends (VERDICT r2 item 6) — its trajectory matches a solo
+    sequence ends — its trajectory matches a solo
     run and stops at its own length, while the long lane's full
     trajectory is unaffected by sharing a batch with a retired lane."""
     import os
@@ -148,7 +148,7 @@ def test_empty_lane_converges_instantly(synth_dataset):
 
 
 def test_multiseq_adaptive_matches_single(synth_dataset, tmp_path):
-    """acvo through multiseq (VERDICT r1 weak item 5)."""
+    """acvo through multiseq."""
     from cvo_rgbd_tpu.params import AcvoParams
 
     p = AcvoParams(max_iter=100)

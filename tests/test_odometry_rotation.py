@@ -5,7 +5,7 @@ of pitch), so every frame pair carries genuine rotation — the full
 chain (selector -> backproject -> align -> quaternion writer -> ATE)
 would fail here on any exp_sek3 / quaternion / chaining sign error,
 which the pure-lateral-translation scene of test_odometry.py cannot
-catch (VERDICT r1 item 4; reference acceptance evaluate_ate.py:152-162).
+catch (reference acceptance evaluate_ate.py:152-162).
 
 The scene/renderer lives in cvo_rgbd_tpu.synth (BandScene: six
 horizontal depth bands with smooth textures, exact per-pixel ray/plane

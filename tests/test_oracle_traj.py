@@ -1,4 +1,4 @@
-"""Sequence-scale oracle trajectory parity (VERDICT r3 item 3).
+"""Sequence-scale oracle trajectory parity.
 
 The reference's de-facto verification is cross-implementation
 redundancy: the MATLAB class and the C++ engine implement the same

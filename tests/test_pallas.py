@@ -1,15 +1,27 @@
-"""Pallas fused-kernel tests (interpret mode on CPU) vs the XLA path."""
+"""Moment-kernel tests (interpret mode on CPU) vs the XLA path.
 
+The same kernel source is lowered through Triton on the GPU, where
+chip_smoke.py compares it with the plain reference at N=M=3072.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cvo_rgbd_tpu import AcvoParams, CvoParams, pad_cloud, se3
+from cvo_rgbd_tpu import (
+    MATLAB_PARAMS, AcvoParams, CvoParams, align_jit, pad_cloud, se3,
+)
 from cvo_rgbd_tpu.core import flow as flow_mod
 from cvo_rgbd_tpu.core import gram as gram_mod
 from cvo_rgbd_tpu.core.step import step_coefficients
-from cvo_rgbd_tpu.ops import fused_flow, fused_step_coeffs
+from cvo_rgbd_tpu.core.step_factored import monomial_features
+from cvo_rgbd_tpu.ops import fused_moments, fused_wsq
+from cvo_rgbd_tpu.ops import moment_kernel as mk
 
-CAP = 256  # one TILE
+CAP = 256
 P = CvoParams()
 
 
@@ -36,87 +48,146 @@ def _xla_reference(p, x, y, ell):
     return A, om, v, wsq, flow_mod.nnz(A)
 
 
-@pytest.mark.parametrize("cap", [256, 512])
-def test_fused_flow_matches_xla(rng, cap):
-    x, y = _pair(rng, n=cap - 40, cap=cap)
-    ell = 0.1
-    A, om_ref, v_ref, wsq_ref, nnz_ref = _xla_reference(P, x, y, ell)
-    om, v, wsq, nnz, sA = fused_flow(
-        x.positions, x.features, x.mask,
-        y.positions, y.features, y.mask, ell, p=P, interpret=True,
-    )
-    # tile-order fp32 accumulation differs from XLA's reduction order
-    scale = max(float(np.linalg.norm(np.asarray(om_ref))), 1e-8)
-    np.testing.assert_allclose(np.asarray(om), np.asarray(om_ref), rtol=1e-3, atol=1e-4 * scale)
-    np.testing.assert_allclose(np.asarray(v), np.asarray(v_ref), rtol=1e-3, atol=1e-6)
-    np.testing.assert_allclose(float(wsq), float(wsq_ref), rtol=1e-3)
-    assert int(nnz) == int(nnz_ref)
-    np.testing.assert_allclose(float(sA), float(np.sum(np.asarray(A))), rtol=1e-4)
+def _centered(x):
+    w = x.mask.astype(jnp.float32)
+    c0 = jnp.sum(x.positions * w[:, None], 0) / jnp.maximum(jnp.sum(w), 1.0)
+    x_c = x.positions - c0
+    return c0, x_c, monomial_features(x_c)
 
 
-def test_fused_step_matches_xla(rng):
-    x, y = _pair(rng)
-    ell = 0.1
-    A, om, v, _, _ = _xla_reference(P, x, y, ell)
-    B_r, C_r, D_r, E_r = step_coefficients(
-        A, x.positions, y.positions, om, v, ell
-    )
-    B, C, D, E = fused_step_coeffs(
-        x.positions, x.features, x.mask,
-        y.positions, y.features, y.mask, ell, om, v, p=P, interpret=True,
-    )
-    for got, ref in [(B, B_r), (C, C_r), (D, D_r), (E, E_r)]:
-        np.testing.assert_allclose(float(got), float(ref), rtol=2e-3, atol=1e-6)
+def _clouds(x, y):
+    return (x.positions, x.features, x.mask,
+            y.positions, y.features, y.mask)
 
 
-def test_fused_flow_masks_padding(rng):
-    """Padding rows contribute nothing."""
-    x, y = _pair(rng, n=100, cap=256)
-    om1, v1, *_ = fused_flow(
-        x.positions, x.features, x.mask,
-        y.positions, y.features, y.mask, 0.1, p=P, interpret=True,
-    )
-    # poison the padded region; results must be unchanged
-    import jax.numpy as jnp
-    xp2 = np.asarray(x.positions).copy()
-    xp2[100:] = 7.7
-    om2, v2, *_ = fused_flow(
-        jnp.asarray(xp2), x.features, x.mask,
-        y.positions, y.features, y.mask, 0.1, p=P, interpret=True,
-    )
-    np.testing.assert_allclose(np.asarray(om1), np.asarray(om2), atol=1e-6)
-    np.testing.assert_allclose(np.asarray(v1), np.asarray(v2), atol=1e-6)
+# ---------------------------------------------------------------------------
+# the wrapper: block choice, padding, platform route
+# ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("n,m,want", [
+    (3072, 3072, (3072, 3072, 6)),     # 96 column blocks x 6 row ranges
+    (768, 3072, (768, 3072, 6)),       # the sp=4 row shard
+    (768, 768, (768, 768, 22)),        # MATLAB-protocol pair
+    (100, 200, (128, 224, 4)),         # pads to whole tiles
+    (32, 32, (32, 32, 1)),             # never more splits than row tiles
+])
+def test_tile_plan(n, m, want):
+    n_pad, m_pad, splits = mk.tile_plan(n, m)
+    assert (n_pad, m_pad, splits) == want
+    assert n_pad % mk.TILE == 0 and m_pad % mk.TILE == 0
+    # enough programs to fill the card unless the rows run out first
+    assert (m_pad // mk.TILE) * splits >= min(
+        mk.TARGET_PROGRAMS, (m_pad // mk.TILE) * (n_pad // mk.TILE)
+    )
+
+
+def test_planes_pad_and_mask():
+    pos = jnp.arange(30, dtype=jnp.float32).reshape(10, 3)
+    feat = jnp.ones((10, 3), jnp.float32)
+    planes = mk._planes(pos, feat, jnp.ones(10), 32)
+    assert planes.shape == (mk.NPLANES, 32)
+    np.testing.assert_array_equal(np.asarray(planes[:3, :10]),
+                                  np.asarray(pos.T))
+    # linear-mode clouds carry 3 features: planes 6-7 are zero
+    assert not np.asarray(planes[6:8]).any()
+    # padded slots are masked out
+    np.testing.assert_array_equal(np.asarray(planes[8]),
+                                  np.r_[np.ones(10), np.zeros(22)])
+
+
+def test_unaligned_capacity_pads(rng):
+    """Capacities that are not whole tiles pad inside the wrapper and
+    give the same sums as the reference."""
+    x, y = _pair(rng, n=90, cap=100)
+    mom, nnz = fused_moments(*_clouds(x, y), monomial_features(x.positions),
+                             0.1, p=P)
+    r_mom, r_nnz, _ = mk.reference_moments(*_clouds(x, y), 0.1, p=P)
+    assert mom.shape == (100, 35)
+    assert float(nnz) == float(r_nnz)
+    np.testing.assert_allclose(np.asarray(mom), np.asarray(r_mom),
+                               rtol=1e-5, atol=1e-5 * float(
+                                   np.abs(np.asarray(r_mom)).max()))
+
+
+_TRITON = "__gpu$xla.gpu.triton"
+
+
+@pytest.mark.parametrize("params,kind", [
+    (CvoParams(), "moments"), (AcvoParams(), "moments"),
+    (MATLAB_PARAMS, "moments"), (AcvoParams(), "wsq_symmetric"),
+])
+def test_kernel_lowered_for_cuda_goes_through_triton(params, kind):
+    """Lowered for the GPU, the kernel body is lowered to Triton IR (on
+    this host, without a card) and called as one Triton custom call per
+    sweep — not interpreted."""
+    nfeat = 3 if params.color_mode == "linear" else 5
+    x = pad_cloud(np.random.default_rng(0).random((40, 3), np.float32),
+                  np.ones((40, nfeat), np.float32), capacity=64)
+
+    def f(c):
+        if kind == "moments":
+            return fused_moments(*_clouds(c, c),
+                                 monomial_features(c.positions), 0.1,
+                                 p=params)
+        return fused_wsq(*_clouds(c, c), 0.1, p=params, symmetric=True)
+
+    exp = jax.export.export(
+        jax.jit(f), platforms=("cuda",),
+        disabled_checks=[jax.export.DisabledSafetyCheck.custom_call(_TRITON)],
+    )(x)
+    text = exp.mlir_module()
+    assert text.count(_TRITON) == 1
+
+
+def test_kernel_lowered_for_cpu_is_interpreted():
+    """Lowered for the CPU the kernel runs in interpret mode; the
+    Triton branch is kept for the GPU only."""
+    x = pad_cloud(np.zeros((4, 3), np.float32), capacity=32)
+    text = jax.jit(
+        lambda c: fused_wsq(*_clouds(c, c), 0.1, p=P)
+    ).lower(x).as_text()
+    assert _TRITON not in text
+
+
+# ---------------------------------------------------------------------------
+# kernel vs plain reference
+# ---------------------------------------------------------------------------
 
 def test_capacity_validation(rng):
+    """The symmetric self-sweep needs a self-pair."""
     x, y = _pair(rng, n=100, cap=256)
     with pytest.raises(ValueError):
-        fused_flow(
-            x.positions[:100], x.features[:100], x.mask[:100],
-            y.positions, y.features, y.mask, 0.1, p=P, interpret=True,
+        fused_wsq(
+            x.positions[:128], x.features[:128], x.mask[:128],
+            y.positions, y.features, y.mask, 0.1, p=P, symmetric=True,
         )
 
 
-def test_align_pallas_backend_matches_xla(rng):
-    """Full align loop with backend='pallas' vs backend='xla'."""
-    from cvo_rgbd_tpu import align_jit
-
-    x, y = _pair(rng)
-    ref = align_jit(CvoParams(max_iter=40), x, y)
-    got = align_jit(CvoParams(max_iter=40, backend="pallas"), x, y)
-    np.testing.assert_allclose(
-        np.asarray(got.tf), np.asarray(ref.tf), atol=5e-5
-    )
-    assert abs(int(got.iterations) - int(ref.iterations)) <= 1
+@pytest.mark.parametrize("params,nfeat", [
+    (CvoParams(), 5), (AcvoParams(), 5), (MATLAB_PARAMS, 3),
+])
+def test_kernel_matches_reference_moments(rng, params, nfeat):
+    """Mom, nnz and wsq against core/gram + A^T Phi at HIGHEST: nnz is
+    exact, Mom and wsq agree to summation order."""
+    x, y = _pair(rng, n=220, cap=256, nfeat=nfeat)
+    ell = 0.1
+    c0, x_c, phi = _centered(x)
+    args = (x_c, x.features, x.mask, y.positions - c0, y.features, y.mask)
+    mom, nnz = fused_moments(*args, phi, ell, p=params)
+    wsq, nnz2 = fused_wsq(*args, ell, p=params)
+    r_mom, r_nnz, r_wsq = mk.reference_moments(*args, ell, p=params)
+    assert float(r_nnz) > 0
+    assert float(nnz) == float(r_nnz) == float(nnz2)
+    scale = float(np.abs(np.asarray(r_mom)).max())
+    np.testing.assert_allclose(np.asarray(mom), np.asarray(r_mom),
+                               rtol=1e-5, atol=1e-5 * scale)
+    np.testing.assert_allclose(float(wsq), float(r_wsq), rtol=1e-5)
 
 
 def test_align_pallas_linear_mode_matches_xla(rng):
     """MATLAB-protocol (linear CI) params on the pallas backend: the
-    cached CI tile + position-kernel gate must reproduce matlab_gram."""
-    import dataclasses
-
-    from cvo_rgbd_tpu import MATLAB_PARAMS, align_jit
-
+    in-kernel CI dot + position-kernel gate must reproduce
+    matlab_gram."""
     x, y = _pair(rng, nfeat=3)
     ref = align_jit(MATLAB_PARAMS, x, y)
     got = align_jit(dataclasses.replace(MATLAB_PARAMS, backend="pallas"),
@@ -128,8 +199,6 @@ def test_align_pallas_linear_mode_matches_xla(rng):
 
 
 def test_align_pallas_adaptive_matches_xla(rng):
-    from cvo_rgbd_tpu import align_jit
-
     x, y = _pair(rng)
     ref = align_jit(AcvoParams(max_iter=30), x, y)
     got = align_jit(AcvoParams(max_iter=30, backend="pallas"), x, y)
@@ -139,56 +208,18 @@ def test_align_pallas_adaptive_matches_xla(rng):
     assert abs(int(got.iterations) - int(ref.iterations)) <= 1
 
 
-def test_color_gram_cache_equivalence(rng):
-    """fused_flow/fused_step with a color_gram cache must reproduce the
-    recompute-every-call results bit-for-bit (same exp, same gates)."""
-    import jax.numpy as jnp
-
-    from cvo_rgbd_tpu.ops import color_gram
-
-    p = CvoParams()
-    x, y = _pair(rng, cap=256)
-    ell = jnp.asarray(0.1, jnp.float32)
-    ck = color_gram(x.positions, x.features, x.mask,
-                    y.positions, y.features, y.mask, p=p)
-    ref = fused_flow(x.positions, x.features, x.mask,
-                     y.positions, y.features, y.mask, ell, p=p)
-    got = fused_flow(x.positions, x.features, x.mask,
-                     y.positions, y.features, y.mask, ell, ck, p=p)
-    for a, b in zip(ref, got):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    omega, v = ref[0], ref[1]
-    ref_s = fused_step_coeffs(x.positions, x.features, x.mask,
-                              y.positions, y.features, y.mask, ell,
-                              omega, v, p=p)
-    got_s = fused_step_coeffs(x.positions, x.features, x.mask,
-                              y.positions, y.features, y.mask, ell,
-                              omega, v, ck, p=p)
-    for a, b in zip(ref_s, got_s):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
 def test_fused_moments_flow_matches_xla(rng):
     """Single-pass moments -> difference-form flow epilogue vs the XLA
     reference."""
-    import jax.numpy as jnp
-
-    from cvo_rgbd_tpu.core.moments import (
-        flow_from_moments, monomial_features_padded,
-    )
-    from cvo_rgbd_tpu.ops import fused_moments
+    from cvo_rgbd_tpu.core.moments import flow_from_moments
 
     x, y = _pair(rng)
     ell = 0.1
     A, om_ref, v_ref, wsq_ref, nnz_ref = _xla_reference(P, x, y, ell)
-
-    w = x.mask.astype(jnp.float32)
-    c0 = jnp.sum(x.positions * w[:, None], 0) / jnp.maximum(jnp.sum(w), 1.0)
-    x_c = x.positions - c0
-    phi = monomial_features_padded(x_c)
+    c0, x_c, phi = _centered(x)
     Mom, nnz = fused_moments(
         x_c, x.features, x.mask, y.positions - c0, y.features, y.mask,
-        phi, ell, p=P, interpret=True,
+        phi, ell, p=P,
     )
     scale = max(float(np.linalg.norm(np.asarray(om_ref))), 1e-8)
     om, v, wsq, sA = flow_from_moments(Mom, y.positions, c0, c=P.c, d=P.d)
@@ -207,12 +238,7 @@ def test_fused_moments_flow_matches_xla(rng):
 
 def test_fused_moments_step_matches_direct(rng):
     """B..E from the moment contraction vs the direct step coefficients."""
-    import jax.numpy as jnp
-
-    from cvo_rgbd_tpu.core.moments import (
-        monomial_features_padded, step_from_moments,
-    )
-    from cvo_rgbd_tpu.ops import fused_moments
+    from cvo_rgbd_tpu.core.moments import step_from_moments
 
     x, y = _pair(rng)
     ell = 0.1
@@ -220,13 +246,10 @@ def test_fused_moments_step_matches_direct(rng):
     B_r, C_r, D_r, E_r = step_coefficients(
         A, x.positions, y.positions, om, v, ell
     )
-
-    w = x.mask.astype(jnp.float32)
-    c0 = jnp.sum(x.positions * w[:, None], 0) / jnp.maximum(jnp.sum(w), 1.0)
-    x_c = x.positions - c0
+    c0, x_c, phi = _centered(x)
     Mom, _ = fused_moments(
         x_c, x.features, x.mask, y.positions - c0, y.features, y.mask,
-        monomial_features_padded(x_c), ell, p=P, interpret=True,
+        phi, ell, p=P,
     )
     B, C, D, E = step_from_moments(Mom, y.positions, c0, om, v, ell)
     for got, ref in [(B, B_r), (C, C_r), (D, D_r), (E, E_r)]:
@@ -235,42 +258,119 @@ def test_fused_moments_step_matches_direct(rng):
 
 
 def test_fused_wsq_matches_xla(rng):
-    from cvo_rgbd_tpu.ops import fused_wsq
-
     x, y = _pair(rng)
     ell = 0.1
     A, _, _, wsq_ref, nnz_ref = _xla_reference(P, x, y, ell)
-    wsq, nnz = fused_wsq(
-        x.positions, x.features, x.mask,
-        y.positions, y.features, y.mask, ell, p=P, interpret=True,
-    )
+    wsq, nnz = fused_wsq(*_clouds(x, y), ell, p=P)
     np.testing.assert_allclose(float(wsq), float(wsq_ref), rtol=1e-3)
     assert int(nnz) == int(nnz_ref)
 
 
 def test_fused_wsq_symmetric_matches_full(rng):
     """Upper-triangle self-sweep == full sweep on a self-pair."""
-    from cvo_rgbd_tpu.ops import fused_wsq
-
     x, _ = _pair(rng)
     ell = 0.1
-    full = fused_wsq(
-        x.positions, x.features, x.mask,
-        x.positions, x.features, x.mask, ell, p=P, interpret=True,
-    )
-    sym = fused_wsq(
-        x.positions, x.features, x.mask,
-        x.positions, x.features, x.mask, ell, p=P, symmetric=True,
-        interpret=True,
-    )
+    full = fused_wsq(*_clouds(x, x), ell, p=P)
+    sym = fused_wsq(*_clouds(x, x), ell, p=P, symmetric=True)
     np.testing.assert_allclose(float(sym[0]), float(full[0]), rtol=1e-5)
     assert int(sym[1]) == int(full[1])
 
 
 # ---------------------------------------------------------------------------
-# Exact AABB tile skipping (VERDICT r4 item 5 generalization): pruned
-# tile pairs would contribute exactly zero, so the skip changes no
-# computed bit — tile_skip=True must be BITWISE equal to False.
+# the align loop on the moment backend vs the XLA backend
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("params,nfeat", [
+    (CvoParams(max_iter=40), 5),
+    (CvoParams(max_iter=60), 5),
+    (MATLAB_PARAMS, 3),
+    (AcvoParams(max_iter=60), 5),
+])
+def test_align_pallas_backend_matches_xla(rng, params, nfeat):
+    """Full align loop with backend='pallas' vs backend='xla'."""
+    x, y = _pair(rng, nfeat=nfeat)
+    ref = align_jit(params, x, y)
+    got = align_jit(dataclasses.replace(params, backend="pallas"), x, y)
+    np.testing.assert_allclose(
+        np.asarray(got.tf), np.asarray(ref.tf), atol=5e-5
+    )
+    assert abs(int(got.iterations) - int(ref.iterations)) <= 1
+    assert bool(got.converged) == bool(ref.converged)
+
+
+PM = dataclasses.replace(MATLAB_PARAMS, backend="pallas")
+
+
+def test_pallas_warm_start(rng):
+    x, y = _pair(rng, nfeat=3)
+    R0 = np.asarray(se3.exp_so3(np.array([0.005, 0.003, -0.002], np.float32)))
+    T0 = np.array([0.01, 0.0, -0.005], np.float32)
+    ref = align_jit(MATLAB_PARAMS, x, y, R0, T0)
+    got = align_jit(PM, x, y, R0, T0)
+    np.testing.assert_allclose(np.asarray(got.tf), np.asarray(ref.tf),
+                               atol=5e-5)
+    assert abs(int(got.iterations) - int(ref.iterations)) <= 1
+
+
+def test_ell0_seed_matches_across_backends(rng):
+    """`ell0` seeds the length-scale state (the reference cvo carries
+    ell across pairs, cvo.cpp:408-410): explicit ell_init reproduces
+    the default exactly, and a carried-over ell agrees across
+    backends."""
+    x, y = _pair(rng, nfeat=3)
+    base = align_jit(PM, x, y)
+    seeded = align_jit(PM, x, y, ell0=MATLAB_PARAMS.ell_init)
+    np.testing.assert_array_equal(np.asarray(seeded.tf), np.asarray(base.tf))
+    assert int(seeded.iterations) == int(base.iterations)
+
+    carried = align_jit(MATLAB_PARAMS, x, y, ell0=0.03)
+    kern = align_jit(PM, x, y, ell0=0.03)
+    np.testing.assert_allclose(np.asarray(kern.tf), np.asarray(carried.tf),
+                               atol=5e-5)
+    assert abs(int(kern.iterations) - int(carried.iterations)) <= 1
+
+
+@pytest.mark.parametrize(
+    "params,nfeat", [(PM, 3), (CvoParams(backend="pallas"), 5)]
+)
+def test_pallas_self_registration_identity(rng, params, nfeat):
+    x, _ = _pair(rng, nfeat=nfeat)
+    res = align_jit(params, x, x)
+    assert int(res.iterations) == 0
+    np.testing.assert_array_equal(np.asarray(res.tf),
+                                  np.eye(4, dtype=np.float32))
+
+
+def test_pallas_empty_moving(rng):
+    x, _ = _pair(rng, nfeat=3)
+    empty = pad_cloud(np.zeros((0, 3), np.float32),
+                      np.zeros((0, 3), np.float32), capacity=256)
+    res = align_jit(PM, x, empty)
+    assert int(res.iterations) == 0
+    assert np.isfinite(np.asarray(res.tf)).all()
+
+
+def test_pallas_vmap_batched_matches_per_pair(rng):
+    """vmap over the moment backend (a batched grid): each lane
+    matches its own single-pair run."""
+    from cvo_rgbd_tpu.core.cloud import stack_clouds
+    from cvo_rgbd_tpu.core.registration import align
+
+    ps = [_pair(rng, nfeat=3) for _ in range(3)]
+    fb = stack_clouds([x for x, _ in ps])
+    mb = stack_clouds([y for _, y in ps])
+    out = jax.jit(jax.vmap(lambda f, m: align(PM, f, m)))(fb, mb)
+    for i, (x, y) in enumerate(ps):
+        one = align_jit(PM, x, y)
+        np.testing.assert_allclose(np.asarray(out.tf)[i],
+                                   np.asarray(one.tf), atol=1e-6)
+        assert int(np.asarray(out.iterations)[i]) == int(one.iterations)
+
+
+# ---------------------------------------------------------------------------
+# Exact AABB tile skipping: pruned tiles would contribute exactly zero,
+# so the skip changes no computed bit — tile_skip=True must be BITWISE
+# equal to False.
 # ---------------------------------------------------------------------------
 
 def _scattered_pair(rng, n=700, cap=1024):
@@ -291,13 +391,14 @@ def _scattered_pair(rng, n=700, cap=1024):
 
 def test_tile_skip_bounds_are_conservative(rng):
     """Every gated-in pair lies in a tile the prune keeps."""
-    from cvo_rgbd_tpu.ops.pallas_gram import aabb_min_d2, block_bounds
+    from cvo_rgbd_tpu.core.cloud import kd_sort
 
     x, y = _scattered_pair(rng)
-    tile = 256
-    lo_x, hi_x = block_bounds(x.positions, x.mask, tile)
-    lo_y, hi_y = block_bounds(y.positions, y.mask, tile)
-    md = np.asarray(aabb_min_d2(lo_x, hi_x, lo_y, hi_y))
+    x, y = kd_sort(x), kd_sort(y)
+    tile = mk.TILE
+    lo_x, hi_x = mk.block_bounds(x.positions, x.mask, tile)
+    lo_y, hi_y = mk.block_bounds(y.positions, y.mask, tile)
+    md = np.asarray(mk.aabb_min_d2(lo_x, hi_x, lo_y, hi_y))
     d2 = np.sum(
         (np.asarray(x.positions)[:, None, :]
          - np.asarray(y.positions)[None, :, :]) ** 2, axis=-1,
@@ -316,10 +417,6 @@ def test_tile_skip_bounds_are_conservative(rng):
     "base", [CvoParams(max_iter=60), AcvoParams(max_iter=60)]
 )
 def test_align_tile_skip_bitwise_equal(rng, base):
-    import dataclasses
-
-    from cvo_rgbd_tpu import align_jit
-
     x, y = _scattered_pair(rng)
     p_on = dataclasses.replace(base, backend="pallas", tile_skip=True)
     p_off = dataclasses.replace(base, backend="pallas", tile_skip=False)
@@ -335,10 +432,6 @@ def test_acvo_cheb_self_mode_matches_exact(rng):
     per-iteration self-kernel sweeps — they are functions of ell alone
     by rigid invariance) converges to the same pose as exact sweeps
     within the documented drift."""
-    import dataclasses
-
-    from cvo_rgbd_tpu import align_jit
-
     x, y = _pair(rng, nfeat=5, n=400, cap=512)
     p_ex = AcvoParams(backend="pallas", max_iter=200)
     p_ch = dataclasses.replace(p_ex, self_mode="cheb")
@@ -347,3 +440,25 @@ def test_acvo_cheb_self_mode_matches_exact(rng):
     assert bool(a.converged) and bool(b.converged)
     np.testing.assert_allclose(np.asarray(b.tf), np.asarray(a.tf),
                                atol=5e-4)
+
+
+# ---------------------------------------------------------------------------
+# params: the backend option
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("cls", [CvoParams, AcvoParams])
+@pytest.mark.parametrize("backend", ["fused", "triton", "XLA"])
+def test_params_reject_unknown_backend(cls, backend):
+    with pytest.raises(ValueError, match="backend"):
+        cls(backend=backend)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(yy_quirk=True), dict(color_mode="linear"),
+])
+def test_acvo_params_reject_kernel_gaps(kw):
+    """Combinations the moment kernel does not implement are refused,
+    not rerouted."""
+    with pytest.raises(ValueError):
+        AcvoParams(backend="pallas", **kw)
+    AcvoParams(backend="xla", **kw)

@@ -109,7 +109,7 @@ def _drifted_square_graph():
 
 def test_pcg_matches_dense(rng):
     """The sparse edge-block PCG solver agrees with the dense 6Nx6N
-    solve on the same graph (VERDICT r2 item 5)."""
+    solve on the same graph."""
     _, g = _drifted_square_graph()
     nodes_d, costs_d = optimize(g, iters=10, solver="dense")
     nodes_p, costs_p = optimize(g, iters=10, solver="pcg", cg_iters=96)

@@ -171,7 +171,7 @@ def test_slam_process_batch_matches_sequential(rng):
 def test_slam_acvo_batched(rng):
     """Adaptive-CVO SLAM (AcvoParams) through the batched-decision
     driver — the configuration bench_sequence_full's slam_acvo leg
-    runs at 573 frames (VERDICT r3 item 5).  acvo's per-pair ell reset
+    runs at 573 frames.  acvo's per-pair ell reset
     (adaptive_cvo.cpp:475) changes warm-start dynamics; the driver
     must still track poses and close the loop."""
     from cvo_rgbd_tpu import AcvoParams
